@@ -1,0 +1,375 @@
+"""Drop-in ``sickle se`` command-line interface on the CUDA port.
+
+The same flags, usage text, summary, error text and exit codes as the JAX
+package's CLI (``sickle_tpu/cli.py``), which is flag-compatible with the
+reference (src/sickle.cpp:41-84, src/trim_single.cpp:83-211).  The device
+is an explicit ``torch.device`` handed to ``main``; ``--cuts auto`` and
+``--cuts device`` run the CUDA cuts kernel on it, ``--cuts host`` the C++
+host kernel.
+
+Not ported yet, and refused with exit code 1 rather than ignored: ``pe``,
+``--dist``, ``--devices`` above 1, ``--checkpoint`` and ``--cuts hybrid``.
+"""
+
+from __future__ import annotations
+
+import getopt
+import os
+import sys
+from typing import List, Optional
+
+import torch
+
+from .constants import (
+    AUTHORS,
+    CLI_QUALITY_TYPES,
+    Compat,
+    PROGRAM_NAME,
+    VERSION,
+)
+from .engine import EngineConfig, run_se
+from .io import native
+from .io.compression import open_input, open_output
+from .oracle import SickleError
+from .ops import TrimParams
+
+DEFAULT_RECORDS_PER_CHUNK = 1 << 16
+
+
+def _msg(debug: bool, text: str) -> None:
+    if debug:
+        from .utils import set_debug
+        from .utils.logging import msg as _log_msg
+
+        set_debug(True)
+        _log_msg(text)
+
+
+def _reader_msg(debug: bool, compat: Compat, path) -> None:
+    """Stdout parity for "Building reader for <path>".
+
+    The fork prints this line UNCONDITIONALLY from the reader ctor
+    (the reference's src/GZReader.cpp:12 — a bare std::cout, not gated on
+    _DEBUGMODE_), so even a debug-disabled fork build emits it on every
+    clean run (it is in the recorded goldens' stdout).  --compat fork
+    therefore always prints it; upstream 1.33 has no such line, so the
+    default compat stays quiet unless -d."""
+    if compat == Compat.FORK:
+        sys.stdout.write(f"Building reader for {path}\n")
+        sys.stdout.flush()
+    else:
+        _msg(debug, f"Building reader for {path}")
+
+
+def main_usage(status: int) -> int:
+    sys.stdout.write(
+        f"\nUsage: {PROGRAM_NAME} <command> [options]\n\n"
+        "Command:\n"
+        "pe\tpaired-end sequence trimming\n"
+        "se\tsingle-end sequence trimming\n\n"
+        "--help, display this help and exit\n"
+        "--version, output version information and exit\n\n"
+    )
+    return status
+
+
+def version_text() -> str:
+    return (
+        f"{PROGRAM_NAME} version {VERSION}\n"
+        "Copyright (c) 2011 The Regents of University of California, Davis Campus.\n"
+        f"{PROGRAM_NAME} is free software and comes with ABSOLUTELY NO WARRANTY.\n"
+        "Distributed under the MIT License.\n\n"
+        f"Written by {AUTHORS}"
+        "CUDA port: sickle-tpu-torch (PyTorch/CUDA).\n"
+    )
+
+
+SE_USAGE = f"""
+Usage: {PROGRAM_NAME} se [options] -f <fastq sequence file> -t <quality type> -o <trimmed fastq file>
+
+Options:
+-f, --fastq-file, Input fastq file (required)
+-t, --qual-type, Type of quality values (solexa (CASAVA < 1.3), illumina (CASAVA 1.3 to 1.7), sanger (which is CASAVA >= 1.8)) (required)
+-o, --output-file, Output trimmed fastq file (required)
+-q, --qual-threshold, Threshold for trimming based on average quality in a window. Default 20.
+-l, --length-threshold, Threshold to keep a read based on length after trimming. Default 20.
+-x, --no-fiveprime, Don't do five prime trimming.
+-n, --trunc-n, Truncate sequences at position of first N.
+-g, --gzip-output, Output gzipped files.
+-a, --threads, Number of host worker threads.
+-b, --batch, maximum MB of data to read from the input file at each cycle.
+--compat, Behavior where the fork and sickle 1.33 disagree: '1.33' (default, '+' comment rewrite) or 'fork' (comment verbatim).
+--devices, Number of accelerator chips to shard each batch over. Default: all.
+--profile, Write a JAX profiler trace to the given directory.
+--metrics, Print per-chunk pipeline stage timings (pack/dispatch/fetch/write) to stderr at exit.
+--checkpoint, Sidecar file making the run restartable (re-run the same command to resume; gzip output resumes at BGZF member boundaries).
+--strict, Error on ANY out-of-range quality char (default: only chars the trimming scan touches error, matching sickle 1.33).
+--cuts, Compute placement: 'auto' (default: accelerator + host failover/assist), 'hybrid', 'device' (accelerator only), or 'host' (C++ host kernel only, no JAX).
+--dist, Join a multi-host run (jax.distributed); each host trims its record-aligned shard of the input into <output>.shard<i> and host 0 prints the merged global summary.
+--coordinator, host:port of the jax.distributed coordinator (with --dist; omit on TPU pods for auto-detection).
+--num-processes, Total hosts in the --dist run (omit on TPU pods).
+--process-id, This host's index in the --dist run (omit on TPU pods).
+--quiet, Don't print out any trimming information
+--help, display this help and exit
+--version, output version information and exit
+
+"""
+
+
+def _usage_exit(text: str, status: int, msg: Optional[str] = None) -> int:
+    sys.stderr.write(text)
+    if msg:
+        sys.stderr.write(f"{msg}\n\n")
+    return status
+
+
+def _parse_qualtype(optarg: str):
+    qt = CLI_QUALITY_TYPES.get(optarg)
+    if qt is None:
+        sys.stderr.write(f"Error: Quality type '{optarg}' is not a valid type.\n")
+    return qt
+
+
+def _records_per_chunk(batch_mb: Optional[int]) -> int:
+    """Map the reference's -b (MB per cycle) to a record count.
+
+    Assumes ~256 bytes/record (150bp reads); clamped so device batches stay
+    in a practical range.  The shapes are fixed per run regardless.
+    """
+    if batch_mb is None:
+        return DEFAULT_RECORDS_PER_CHUNK
+    recs = (max(batch_mb, 1) << 20) // 256
+    return max(4096, min(recs, 1 << 18))
+
+
+CUTS_MODES = ("auto", "hybrid", "device", "host")
+
+
+def _not_ported(what: str) -> int:
+    sys.stderr.write(
+        f"****Error: {what} is not yet ported to the PyTorch/CUDA package "
+        "(use python -m sickle_tpu).\n\n")
+    return 1
+
+
+def _build_cuts_fn(params: TrimParams, mode: str, device: torch.device,
+                   cfg: EngineConfig):
+    """--cuts host: the C++ host kernel; auto/device: the CUDA kernel on
+    ``device`` (a CPU device runs the kernel's plain PyTorch version)."""
+    if mode == "host":
+        from .ops.trim_host import host_cuts_fn
+
+        return host_cuts_fn(params)
+    from .engine.pipeline import _cuda_cuts_fn
+
+    return _cuda_cuts_fn(params, device, cfg.slice_rows)
+
+
+class _Profile:
+    """--profile DIR: a torch.profiler trace of the run, written as
+    ``DIR/trace.json`` (Chrome trace format)."""
+
+    def __init__(self, trace_dir: Optional[str], device: torch.device):
+        self.trace_dir = trace_dir
+        self.device = device
+        self._prof = None
+
+    def __enter__(self):
+        if self.trace_dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=acts)
+            self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._prof is not None:
+            self._prof.__exit__(*exc)
+            os.makedirs(self.trace_dir, exist_ok=True)
+            self._prof.export_chrome_trace(
+                os.path.join(self.trace_dir, "trace.json"))
+        return False
+
+
+def se_main(argv: List[str], device: torch.device) -> int:
+    longopts = [
+        "fastq-file=", "output-file=", "qual-type=", "qual-threshold=",
+        "length-threshold=", "no-fiveprime", "discard-n", "gzip-output",
+        "quiet", "threads=", "batch=", "compat=", "devices=", "profile=",
+        "metrics", "checkpoint=", "strict", "cuts=", "dist", "coordinator=",
+        "num-processes=", "process-id=", "help", "version",
+    ]
+    try:
+        opts, extra = getopt.gnu_getopt(argv, "df:t:o:q:a:b:l:zxng", longopts)
+    except getopt.GetoptError as e:
+        sys.stderr.write(f"{e}\n")
+        return _usage_exit(SE_USAGE, 1)
+
+    infn = outfn = None
+    qualtype = None
+    q_thresh, l_thresh = 20, 20
+    no_five = trunc_n = gzip_out = quiet = debug = strict = False
+    dist_on = False
+    cuts_mode = "auto"
+    batch_mb = None
+    devices = None
+    compat = Compat.V133
+    profile = None
+    metrics_on = False
+    ckfn = None
+
+    for o, a in opts:
+        if o in ("-f", "--fastq-file"):
+            infn = a
+        elif o in ("-o", "--output-file"):
+            outfn = a
+        elif o in ("-t", "--qual-type"):
+            qualtype = _parse_qualtype(a)
+            if qualtype is None:
+                return _usage_exit(SE_USAGE, 1)
+        elif o in ("-q", "--qual-threshold"):
+            q_thresh = int(a)
+            if q_thresh < 0:
+                sys.stderr.write("Quality threshold must be >= 0\n")
+                return 1
+        elif o in ("-l", "--length-threshold"):
+            l_thresh = int(a)
+            if l_thresh < 0:
+                sys.stderr.write("Length threshold must be >= 0\n")
+                return 1
+        elif o in ("-x", "--no-fiveprime"):
+            no_five = True
+        elif o == "--strict":
+            strict = True
+        elif o == "--cuts":
+            cuts_mode = a.strip().lower()
+            if cuts_mode not in CUTS_MODES:
+                sys.stderr.write(
+                    f"****Error: --cuts must be auto, hybrid, device or host, got '{a}'.\n\n")
+                return 1
+        elif o == "--dist":
+            dist_on = True
+        elif o in ("-n", "--discard-n"):
+            trunc_n = True
+        elif o in ("-g", "--gzip-output"):
+            gzip_out = True
+        elif o in ("-z", "--quiet"):
+            quiet = True
+        elif o == "-d":
+            debug = True
+        elif o in ("-a", "--threads"):
+            native.set_threads(int(a))
+        elif o in ("-b", "--batch"):
+            batch_mb = int(a)
+        elif o == "--compat":
+            compat = Compat(a) if a != "1.33" else Compat.V133
+        elif o == "--devices":
+            devices = int(a)
+        elif o == "--profile":
+            profile = a
+        elif o == "--metrics":
+            metrics_on = True
+        elif o == "--checkpoint":
+            ckfn = a
+        elif o == "--help":
+            sys.stdout.write(SE_USAGE)
+            return 0
+        elif o == "--version":
+            sys.stdout.write(version_text())
+            return 0
+
+    if qualtype is None or infn is None or outfn is None:
+        return _usage_exit(
+            SE_USAGE, 1,
+            "****Error: Must have quality type, input file, and output file.",
+        )
+    if infn == outfn:
+        sys.stderr.write("****Error: Input file is same as output file.\n\n")
+        return 1
+    # (--coordinator/--num-processes/--process-id only matter with --dist)
+    if dist_on:
+        return _not_ported("--dist")
+    if devices is not None and devices > 1:
+        return _not_ported("--devices above 1")
+    if ckfn:
+        return _not_ported("--checkpoint")
+    if cuts_mode == "hybrid":
+        return _not_ported("--cuts hybrid")
+    if (cuts_mode != "host" and device.type == "cuda"
+            and not torch.cuda.is_available()):
+        sys.stderr.write(
+            "****Error: no CUDA device is available for the cuts kernel "
+            "(use --cuts host).\n\n")
+        return 1
+
+    _msg(debug, "Setting se trimming params")
+    params = TrimParams(
+        qualtype=qualtype,
+        qual_threshold=q_thresh,
+        length_threshold=l_thresh,
+        no_fiveprime=no_five,
+        trunc_n=trunc_n,
+        compat=compat,
+        strict=strict,
+    )
+    cfg = EngineConfig(records_per_chunk=_records_per_chunk(batch_mb),
+                       compat=compat)
+    cuts_fn = _build_cuts_fn(params, cuts_mode, device, cfg)
+    if metrics_on:
+        from .utils.metrics import Metrics
+
+        cfg.metrics = Metrics()
+
+    _msg(debug, "trim_main()")
+    _reader_msg(debug, compat, infn)
+    try:
+        with open_input(infn) as fin:
+            out = open_output(outfn, gzip_out)
+            try:
+                with _Profile(profile, device):
+                    counters = run_se(fin, out, params, cfg=cfg,
+                                      cuts_fn=cuts_fn)
+            finally:
+                if out is not sys.stdout.buffer:
+                    out.close()
+    except FileNotFoundError:
+        sys.stderr.write(f"****Error: Could not open input file '{infn}'.\n\n")
+        return 1
+    except SickleError as e:
+        sys.stderr.write(e.message + "\n")
+        return e.exit_code
+
+    if cfg.metrics is not None:
+        cfg.metrics.report()
+    if not quiet:
+        sys.stdout.write(
+            f"\nSE input file: {infn}\n\n"
+            f"Total FastQ records: {counters.total}\n"
+            f"FastQ records kept: {counters.kept}\n"
+            f"FastQ records discarded: {counters.discarded}\n\n"
+        )
+    return 0
+
+
+def main(argv: Optional[List[str]] = None, device=None) -> int:
+    """The ``sickle`` CLI.  ``device``: where the device step runs (a
+    ``torch.device`` or its name); default ``cuda``."""
+    device = torch.device(device if device is not None else "cuda")
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] not in ("pe", "se", "--version", "--help"):
+        return main_usage(1)
+    if argv[0] == "--version":
+        sys.stdout.write(version_text())
+        return 0
+    if argv[0] == "--help":
+        return main_usage(0)
+    if argv[0] == "pe":
+        return _not_ported("pe")
+    return se_main(argv[1:], device)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

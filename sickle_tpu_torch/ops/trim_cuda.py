@@ -1,0 +1,156 @@
+"""The CUDA cuts kernel (``csrc/trim_cuts.cu``) and its wrapper.
+
+Port of ``sickle_tpu/ops/trim_pallas.py``: the four Pallas kernels
+(generic and uniform-window, each with and without the ``-n`` seq
+operand) become one templated CUDA kernel, which also fuses the JAX
+device step's length derivation (prologue) and result packing
+(epilogue).  The kernel is built with ``nvcc`` at first use into a
+plain-C shared library under the package's git-ignored ``_build/cuda``
+directory and bound with ctypes — no PyTorch headers, so the build takes
+seconds.
+
+``trim_cuts`` takes tensors: on a CUDA tensor it launches the kernel or
+raises; on a CPU tensor it runs the plain PyTorch version
+(``ops/trim.py::trim_codes``), which is also what the kernel is held
+against on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+from typing import Optional
+
+import torch
+
+from ..constants import Compat, QUALITY_CONSTANTS
+from .trim import MAX_PACKED_L, TrimParams, trim_codes
+
+_PKG = pathlib.Path(__file__).resolve().parents[1]
+SOURCE = _PKG / "csrc" / "trim_cuts.cu"
+_BUILD_DIR = _PKG / "_build" / "cuda"
+_LIB_PATH = _BUILD_DIR / "libtrim_cuts.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# kernel launches made by trim_cuts (one per call on a CUDA tensor)
+LAUNCHES = 0
+# the compiler's report (registers, spills) from the last build, or ""
+BUILD_LOG = ""
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    return os.path.join(home, "bin", "nvcc")
+
+
+def build(force: bool = False) -> ctypes.CDLL:
+    """Compile (if stale) and load the kernel library; raises on failure."""
+    global _lib, BUILD_LOG
+    with _lock:
+        if _lib is not None and not force:
+            return _lib
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        if (force or not _LIB_PATH.exists()
+                or _LIB_PATH.stat().st_mtime < SOURCE.stat().st_mtime):
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+            os.close(fd)
+            try:
+                r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+                                   capture_output=True, text=True)
+                if r.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({r.returncode}) on {SOURCE}:\n{r.stderr}")
+                BUILD_LOG = r.stderr
+                os.replace(tmp, _LIB_PATH)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        lib = ctypes.CDLL(str(_LIB_PATH))
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.sk_trim_cuts.restype = ci
+        lib.sk_trim_cuts.argtypes = [vp, vp, vp, vp, ctypes.c_longlong,
+                                     ci, ci, ci, ci, ci, ci, ci, ci, ci,
+                                     ci, ci, vp]
+        _lib = lib
+        return _lib
+
+
+def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape, device):
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def trim_cuts(qual: torch.Tensor, params: TrimParams, *,
+              lengths: Optional[torch.Tensor] = None,
+              seq: Optional[torch.Tensor] = None,
+              uniform_len: Optional[int] = None) -> torch.Tensor:
+    """The device step for one ``[B, L]`` batch of quality rows.
+
+    ``lengths`` (int32[B]) is None when the packer proved the zero-padding
+    invariant: the kernel then derives each length from the first zero
+    byte.  ``seq`` is required under ``params.trunc_n``.  ``uniform_len``:
+    every non-padding row has this length, so the window is one constant.
+
+    Returns packed int32[B] codes — (five+1)<<16 | bad<<15 | (three+1) —
+    or, for ``L >= MAX_PACKED_L``, the int32[3, B] stack (five, three,
+    bad); see ``ops/trim.py::encode_codes``.
+    """
+    global LAUNCHES
+    if qual.device.type == "cpu":
+        return trim_codes(seq if params.trunc_n else None, qual, lengths,
+                          params, uniform_len)
+    if qual.device.type != "cuda":
+        raise ValueError(f"trim_cuts runs on cuda or cpu tensors, got {qual.device}")
+    if qual.dim() != 2:
+        raise ValueError(f"qual must be [B, L], got shape {tuple(qual.shape)}")
+    B, L = qual.shape
+    dev = qual.device
+    _check("qual", qual, torch.uint8, (B, L), dev)
+    if lengths is not None:
+        _check("lengths", lengths, torch.int32, (B,), dev)
+    if params.trunc_n:
+        if seq is None:
+            raise ValueError("params.trunc_n needs the seq rows")
+        _check("seq", seq, torch.uint8, (B, L), dev)
+    if uniform_len is not None and uniform_len <= 0:
+        raise ValueError(f"uniform_len must be positive, got {uniform_len}")
+    packed = L < MAX_PACKED_L
+    out = torch.empty((B,) if packed else (3, B), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    lib = build()
+    offset, qmin, qmax = QUALITY_CONSTANTS[params.qualtype]
+    w = 0 if uniform_len is None else (uniform_len // 10 or uniform_len)
+    with torch.cuda.device(dev):
+        rc = lib.sk_trim_cuts(
+            seq.data_ptr() if params.trunc_n else None,
+            qual.data_ptr(),
+            lengths.data_ptr() if lengths is not None else None,
+            out.data_ptr(), B, L, offset, qmin, qmax,
+            params.qual_threshold, params.length_threshold,
+            int(params.no_fiveprime), int(params.trunc_n),
+            int(params.compat != Compat.V133), w, int(packed),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"trim_cuts kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return out

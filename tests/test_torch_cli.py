@@ -1,0 +1,173 @@
+"""``sickle_tpu_torch se`` against ``sickle_tpu se``, byte for byte.
+
+The port's CLI runs in-process on the CPU device (the kernel wrapper then
+takes its plain PyTorch path through the same device step) and with
+``--cuts host``; the JAX package's CLI runs as it runs everywhere in this
+test suite.  Output bytes, the summary, error text and exit codes must
+be identical on every corpus.
+"""
+
+import pytest
+
+import sickle_tpu.cli as jax_cli
+import sickle_tpu_torch.cli as torch_cli
+from sickle_tpu_torch.constants import QualityType
+from sickle_tpu_torch.utils.corpus import write_fastq
+
+CORPORA = {
+    # name: (qual type, generator options)
+    "uniform150": ("sanger", dict(length=150, bad_tail=0.01)),
+    "ragged": ("sanger", dict(length=(30, 160), n_rate=0.01, bad_tail=0.01)),
+    "short": ("sanger", dict(length=(1, 25), n_rate=0.02)),
+    "binned": ("sanger", dict(length=150, binned=True)),
+    "illumina": ("illumina", dict(length=(60, 110), qualtype=QualityType.ILLUMINA,
+                                  n_rate=0.01)),
+    "solexa": ("solexa", dict(length=100, qualtype=QualityType.SOLEXA,
+                              bad_tail=0.02)),
+    "bad_in_scan": ("sanger", dict(length=150, bad_head=0.01)),
+}
+FLAGS = {
+    "default": [],
+    "trunc_n": ["-n"],
+    "no5_q30": ["-x", "-q", "30", "-l", "30"],
+    "fork": ["--compat", "fork", "-q", "25"],
+}
+N_READS = 1500
+
+
+@pytest.fixture(scope="module")
+def corpus_dir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_cli")
+    for k, (name, (_, kw)) in enumerate(sorted(CORPORA.items())):
+        with open(d / f"{name}.fastq", "wb") as f:
+            write_fastq(f, 100 + k, N_READS, chunk=700, **kw)
+    return d
+
+
+@pytest.fixture(autouse=True)
+def _restore_engine_env(monkeypatch):
+    # the JAX CLI's --cuts flag writes these into os.environ; keep any
+    # such change from leaking out of this module
+    for var in ("SICKLE_TPU_CUTS", "SICKLE_TPU_HYBRID"):
+        monkeypatch.delenv(var, raising=False)
+
+
+def run(main, argv, capsysbinary):
+    capsysbinary.readouterr()
+    rc = main(argv)
+    out, err = capsysbinary.readouterr()
+    return rc, out, err
+
+
+@pytest.mark.parametrize("flags", list(FLAGS), ids=list(FLAGS))
+@pytest.mark.parametrize("corpus", list(CORPORA), ids=list(CORPORA))
+def test_se_matches_jax_package(corpus, flags, corpus_dir, capsysbinary):
+    qt = CORPORA[corpus][0]
+    src = str(corpus_dir / f"{corpus}.fastq")
+    argv = ["se", "-f", src, "-t", qt] + FLAGS[flags]
+    want_out = str(corpus_dir / f"{corpus}.{flags}.jax.fastq")
+    want = run(jax_cli.main, argv + ["-o", want_out], capsysbinary)
+    if corpus == "bad_in_scan":
+        assert want[0] == 1 and b"does not fall within correct range" in want[2]
+    else:
+        assert want[0] == 0 and b"Total FastQ records: 1500" in want[1]
+    for mode in ("device", "host"):
+        out = str(corpus_dir / f"{corpus}.{flags}.{mode}.fastq")
+        got = run(lambda a: torch_cli.main(a, device="cpu"),
+                  argv + ["-o", out, "--cuts", mode], capsysbinary)
+        assert got == want, mode
+        if want[0] == 0:
+            with open(out, "rb") as a, open(want_out, "rb") as b:
+                assert a.read() == b.read(), mode
+
+
+def test_gzip_output_and_metrics(corpus_dir, capsysbinary):
+    import gzip
+
+    src = str(corpus_dir / "ragged.fastq")
+    plain = str(corpus_dir / "gz.ref.fastq")
+    gz = str(corpus_dir / "gz.fastq.gz")
+    argv = ["se", "-f", src, "-t", "sanger"]
+    assert run(jax_cli.main, argv + ["-o", plain], capsysbinary)[0] == 0
+    rc, out, err = run(lambda a: torch_cli.main(a, device="cpu"),
+                       argv + ["-o", gz, "-g", "--metrics"], capsysbinary)
+    assert rc == 0 and b"metrics: " in err
+    with gzip.open(gz, "rb") as a, open(plain, "rb") as b:
+        assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("codec", ["bgzf", "gzip"])
+def test_gzip_input_matches_jax_package(codec, corpus_dir, capsysbinary):
+    """BGZF input (the port's own ``-g`` output) takes the zero-copy
+    block-parallel producer; serial gzip the chunked reader."""
+    import gzip
+
+    src = str(corpus_dir / "binned.fastq")  # no out-of-range chars
+    gz = str(corpus_dir / f"in.{codec}.fastq.gz")
+    if codec == "bgzf":
+        rc = run(lambda a: torch_cli.main(a, device="cpu"),
+                 ["se", "-f", src, "-t", "sanger", "-q", "0", "-l", "0",
+                  "-x", "-g", "-o", gz], capsysbinary)[0]
+        assert rc == 0
+    else:
+        with open(src, "rb") as f, gzip.open(gz, "wb") as g:
+            g.write(f.read())
+    argv = ["se", "-f", gz, "-t", "sanger", "-n"]
+    want_out = str(corpus_dir / f"gzin.{codec}.jax.fastq")
+    got_out = str(corpus_dir / f"gzin.{codec}.torch.fastq")
+    want = run(jax_cli.main, argv + ["-o", want_out], capsysbinary)
+    got = run(lambda a: torch_cli.main(a, device="cpu"),
+              argv + ["-o", got_out], capsysbinary)
+    assert got == want and want[0] == 0
+    with open(got_out, "rb") as a, open(want_out, "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_profile_writes_a_trace(corpus_dir, capsysbinary):
+    src = str(corpus_dir / "short.fastq")
+    trace_dir = corpus_dir / "prof"
+    rc = run(lambda a: torch_cli.main(a, device="cpu"),
+             ["se", "-f", src, "-t", "sanger", "-o",
+              str(corpus_dir / "prof.fastq"), "--profile", str(trace_dir)],
+             capsysbinary)[0]
+    assert rc == 0
+    assert (trace_dir / "trace.json").stat().st_size > 0
+
+
+@pytest.mark.parametrize("extra, what", [
+    (["--dist"], b"--dist"),
+    (["--devices", "2"], b"--devices above 1"),
+    (["--checkpoint", "ck.json"], b"--checkpoint"),
+    (["--cuts", "hybrid"], b"--cuts hybrid"),
+])
+def test_unported_options_are_refused(extra, what, corpus_dir, capsysbinary):
+    src = str(corpus_dir / "uniform150.fastq")
+    out = str(corpus_dir / "refused.fastq")
+    rc, _, err = run(lambda a: torch_cli.main(a, device="cpu"),
+                     ["se", "-f", src, "-t", "sanger", "-o", out] + extra,
+                     capsysbinary)
+    assert rc == 1 and what + b" is not yet ported" in err
+
+
+def test_pe_is_refused(capsysbinary):
+    rc, _, err = run(lambda a: torch_cli.main(a, device="cpu"),
+                     ["pe", "-c", "x.fastq", "-t", "sanger", "-m", "o.fastq"],
+                     capsysbinary)
+    assert rc == 1 and b"pe is not yet ported" in err
+
+
+@pytest.mark.parametrize("argv", [
+    [], ["--version"], ["--help"], ["se"], ["se", "--help"],
+    ["se", "-f", "missing.fastq", "-t", "sanger", "-o", "o.fastq"],
+    ["se", "-f", "a", "-t", "phred", "-o", "b"],
+    ["se", "-f", "a", "-t", "sanger", "-o", "a"],
+    ["se", "-f", "a", "-t", "sanger", "-o", "b", "--cuts", "gpu"],
+])
+def test_usage_and_errors_match(argv, capsysbinary):
+    want = run(jax_cli.main, argv, capsysbinary)
+    got = run(lambda a: torch_cli.main(a, device="cpu"), argv, capsysbinary)
+    if argv == ["--version"]:  # the last line names the build
+        assert got[0] == want[0]
+        assert got[1].splitlines()[:-1] == want[1].splitlines()[:-1]
+    else:
+        assert got == want

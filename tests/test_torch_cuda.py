@@ -1,0 +1,153 @@
+"""The CUDA cuts kernel on the card against its plain PyTorch version.
+
+These tests need an NVIDIA GPU and nvcc and skip elsewhere.  The file
+imports no JAX, so on a machine without it they run with:
+
+    SICKLE_TPU_TEST_REAL_DEVICE=1 python -m pytest tests/test_torch_cuda.py -m cuda
+"""
+
+import io
+
+import numpy as np
+import pytest
+import torch
+
+from sickle_tpu_torch.constants import Compat, QualityType
+from sickle_tpu_torch.engine.pipeline import _cuda_cuts_fn, run_se
+from sickle_tpu_torch.ops import trim_cuda
+from sickle_tpu_torch.ops.trim import MAX_PACKED_L, TrimParams, trim_codes
+from sickle_tpu_torch.ops.trim_host import host_cuts_fn
+from sickle_tpu_torch.utils.corpus import fastq_bytes, make_reads
+
+pytestmark = pytest.mark.cuda
+
+S, I, X = QualityType.SANGER, QualityType.ILLUMINA, QualityType.SOLEXA
+PARAMS = [
+    TrimParams(S, 60, 20, False, False, Compat.FORK),
+    TrimParams(S, 20, 20, False, True, Compat.V133),
+    TrimParams(I, 30, 30, True, False, Compat.V133),
+    TrimParams(X, 20, 5, False, True, Compat.FORK),
+    TrimParams(S, 0, 0, False, False, Compat.V133),
+    TrimParams(S, 40, no_fiveprime=True, trunc_n=True),
+]
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    trim_cuda.build()
+    return torch.device("cuda", 0)
+
+
+def rows(p, form, dev, B=4096, seed=0):
+    kw = dict(length=150, width=152) if form == "uniform" else dict(
+        length=(1, 250), width=256)
+    s, q, n = make_reads(seed, B, qualtype=p.qualtype, n_rate=0.02,
+                         bad_tail=0.02, bad_head=0.01, **kw)
+    s[-5:], q[-5:], n[-5:] = 0, 0, 0
+    return [torch.from_numpy(a).to(dev) for a in (s, q, n)]
+
+
+@pytest.mark.parametrize("form", ["generic", "uniform"])
+@pytest.mark.parametrize("p", PARAMS, ids=[f"p{i}" for i in range(len(PARAMS))])
+def test_kernel_matches_plain(p, form, dev):
+    seq, qual, lens = rows(p, form, dev)
+    ul = 150 if form == "uniform" else None
+    want = trim_codes(seq, qual, None, p, ul)
+    for lengths in (None, lens):
+        got = trim_cuda.trim_cuts(qual, p, lengths=lengths, seq=seq,
+                                  uniform_len=ul)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_long_rows_unpacked(dev):
+    p = TrimParams(S, 25)
+    L = MAX_PACKED_L + 10
+    s, q, n = make_reads(3, 12, length=(5, L), width=L, bad_tail=0.3)
+    qual, lens = torch.from_numpy(q).to(dev), torch.from_numpy(n).to(dev)
+    got = trim_cuda.trim_cuts(qual, p)
+    assert got.shape == (3, 12)
+    assert torch.equal(got, trim_codes(None, qual, None, p))
+    assert torch.equal(trim_cuda.trim_cuts(qual, p, lengths=lens), got)
+
+
+def test_launch_count_and_checks(dev):
+    p = TrimParams(S, 20, trunc_n=True)
+    seq, qual, lens = rows(p, "generic", dev, B=64)
+    before = trim_cuda.LAUNCHES
+    trim_cuda.trim_cuts(qual, p, seq=seq)
+    assert trim_cuda.LAUNCHES == before + 1
+    with pytest.raises(ValueError):
+        trim_cuda.trim_cuts(qual, p)  # -n needs seq
+    with pytest.raises(TypeError):
+        trim_cuda.trim_cuts(qual.to(torch.int32), TrimParams())
+    with pytest.raises(ValueError):
+        trim_cuda.trim_cuts(qual.t(), TrimParams())
+    with pytest.raises(ValueError):
+        trim_cuda.trim_cuts(qual, TrimParams(), lengths=lens.cpu())
+    assert trim_cuda.LAUNCHES == before + 1
+
+
+@pytest.mark.parametrize("clean", [True, False])
+def test_device_step_matches_cpu(clean, dev):
+    p = TrimParams(S, 20)
+    s, q, n = make_reads(9, 3000, length=(30, 160), width=160, bad_tail=0.02)
+    q = np.concatenate([q, np.zeros((72, 160), np.uint8)])
+    n = np.concatenate([n, np.zeros(72, np.int32)])
+    got = _cuda_cuts_fn(p, dev, slice_rows=1024)(q, q, n, qual_clean=clean)
+    want = _cuda_cuts_fn(p, "cpu", slice_rows=1024)(q, q, n, qual_clean=clean)
+    for a, b in zip(got.materialize(), want.materialize()):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_run_se_matches_host_kernel(dev):
+    p = TrimParams(S, 20)
+    data = fastq_bytes(*make_reads(4, 20000, length=(30, 160), bad_tail=0.01))
+    outs = []
+    for fn in (_cuda_cuts_fn(p, dev), host_cuts_fn(p)):
+        out = io.BytesIO()
+        c = run_se(io.BytesIO(data), out, p, cuts_fn=fn)
+        outs.append((out.getvalue(), c))
+    assert outs[0] == outs[1]
+
+
+def test_kernel_matches_plain_fuzz(dev):
+    """Seeded adversarial batches: any byte 1-255 inside reads (out of
+    range for every encoding), lengths 0..L, N/n anywhere, thresholds up
+    to 10**8 (the int32 D transform wraps), every flag."""
+    rng = np.random.default_rng(2024)
+    for _ in range(150):
+        L = int(rng.choice([8, 40, 152, 256, 1000, 4104]))
+        B = int(rng.integers(1, 300))
+        lens = rng.integers(0, L + 1, B).astype(np.int32)
+        lens[rng.random(B) < 0.1] = L
+        lane = np.arange(L)[None, :]
+        inside = lane < lens[:, None]
+        qt = QualityType(int(rng.choice([1, 2, 3])))
+        lo, hi = {1: (33, 80), 2: (58, 110), 3: (64, 110)}[int(qt)]
+        q = rng.integers(lo, hi, (B, L))
+        wild = rng.random((B, L)) < rng.choice([0.0, 0.001, 0.05])
+        q = np.where(wild, rng.integers(1, 256, (B, L)), q)
+        qual = np.where(inside, q, 0).astype(np.uint8)
+        seq = np.where(rng.random((B, L)) < 0.01, ord("N"),
+                       np.where(rng.random((B, L)) < 0.01, ord("n"), ord("A")))
+        seq = np.where(inside, seq, 0).astype(np.uint8)
+        p = TrimParams(qt, int(rng.choice([0, 1, 20, 40, 93, 10 ** 8])),
+                       int(rng.integers(0, 60)), bool(rng.random() < 0.3),
+                       bool(rng.random() < 0.4),
+                       Compat.FORK if rng.random() < 0.5 else Compat.V133)
+        s_d, q_d, n_d = (torch.from_numpy(a).to(dev) for a in (seq, qual, lens))
+        ul = None
+        if rng.random() < 0.3:  # make it a uniform batch
+            ul = int(rng.integers(1, L + 1))
+            keep = lens > 0
+            n_d = torch.from_numpy(np.where(keep, ul, 0).astype(np.int32)).to(dev)
+            q_d = torch.where(torch.arange(L, device=dev)[None, :] < n_d[:, None],
+                              torch.clamp(q_d, min=1), 0).to(torch.uint8)
+        want = trim_codes(s_d, q_d, n_d, p, ul)
+        for lengths in (None, n_d):
+            got = trim_cuda.trim_cuts(q_d, p, lengths=lengths, seq=s_d,
+                                      uniform_len=ul)
+            assert torch.equal(got, want), (p, L, B, ul)
