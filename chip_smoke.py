@@ -24,6 +24,20 @@ Phases (any failure raises, so the exit code is non-zero):
    records of a device run must match the scalar oracle.  Each run's
    wall and stage totals are printed, then the device time by kind (H2D,
    kernel, D2H) from one more device run under ``--profile``.
+4. pe end to end, through the same entry point (``sickle pe``):
+   - two-file, 1,000,000 pairs of 2x150 bp (Sanger, ``-q 20``): the
+     combined ``[2n, L]`` mate batch in the kernel's uniform form; runs
+     in turns host, device, device, host, all with ``--metrics``; every
+     ``-o/-p/-s`` output byte-identical with equal summaries, the first
+     2,000 pairs of a device run equal to the scalar oracle;
+   - interleaved ``-M``, 250,000 pairs of ragged 30-160 bp: one
+     interleaved batch per chunk in the generic form; device == host;
+   - two-file, mate-2 reads growing longer chunk by chunk, so every
+     chunk overflows the shared row stride and ships as two batches (the
+     split route); device == host;
+   - a device two-file run with ``--checkpoint``: outputs equal the plain
+     device run's, and the sidecar records every input record as done.
+   Each device run must launch the kernel, on the route it names.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and the run's verdict (``{"ok": true, ...}``).
@@ -49,6 +63,9 @@ SOURCE = "sickle_tpu_torch/csrc/trim_cuts.cu"
 REPLACES = "sickle_tpu/ops/trim_pallas.py:343"
 N_UNIFORM = 2_000_000  # uniform 150 bp reads in the end-to-end input
 N_RAGGED = 250_000  # ragged 30-160 bp reads after them
+N_PE_PAIRS = 1_000_000  # 2x150 bp pairs, two-file pe
+N_PE_RAGGED = 250_000  # ragged 30-160 bp pairs, interleaved -M
+PE_SPLIT_CHUNKS, PE_CHUNK = 6, 1 << 16  # split-route input: 6 chunks
 
 
 class SmokeError(Exception):
@@ -322,6 +339,167 @@ def phase_e2e(trim_cuda, card, device, workdir):
     return launches
 
 
+def _stage_line(met: dict) -> str:
+    return (f"{met['chunks']} chunks; stage totals ms: pack "
+            f"{met['pack']['total_ms']}, dispatch {met['dispatch']['total_ms']} "
+            f"(max {met['dispatch']['max_ms']}), fetch "
+            f"{met['fetch']['total_ms']}, consume {met['consume']['total_ms']}")
+
+
+def _pe_turns(trim_cuda, cli, device, argv_for, modes, n_pairs, route):
+    """Run ``sickle pe`` once per mode in ``modes`` (all with --metrics);
+    every run's outputs and summary must equal the first run's; outputs
+    of the third run on are deleted once compared.  Returns
+    ([(mode, wall, metrics, launches)], first run's output paths,
+    summary)."""
+    runs, first, launches_total = [], None, 0
+    for k, mode in enumerate(modes):
+        argv, outs = argv_for(k)
+        argv = argv + ["--metrics"] + (["--cuts", "host"] if mode == "host"
+                                       else [])
+        trim_cuda.LAUNCHES = 0
+        rc, so, se, wall = _run_cli(cli, argv, device)
+        launches = trim_cuda.LAUNCHES
+        check(rc == 0, f"pe {mode} run exited {rc}: {se[-2000:]}")
+        met = _metrics(se)
+        if mode == "device":
+            check(launches > 0, "the pe path never launched the cuts kernel")
+            check(set(met["routes"]) == {route},
+                  f"pe device run took routes {met['routes']}, not {route}")
+            launches_total += launches
+        runs.append((mode, wall, met, launches))
+        if first is None:
+            first = (outs, so)
+            check(f"({n_pairs} pairs)" in so, f"bad pe summary:\n{so}")
+            continue
+        check(so == first[1], f"pe summaries differ:\n{so}\n{first[1]}")
+        for a, b in zip(outs, first[0]):
+            check(_same_file(a, b), f"pe {mode} output {a} differs from {b}")
+            if k > 1:  # runs 0 and 1 are kept for the caller
+                os.unlink(a)
+    return runs, first[0], first[1], launches_total
+
+
+def _print_pe_runs(title, runs, n_pairs):
+    for mode, wall, met, launches in runs:
+        h2d = (f"H2D {met['h2d_bytes'] / (2 * n_pairs):.1f} B/read; "
+               if mode == "device" else "")
+        print(f"pe {title}, {mode}: {wall:.3f} s wall, {n_pairs / wall:.0f} "
+              f"pairs/s; {_stage_line(met)}; kernel launches {launches}; "
+              f"{h2d}routes {met['routes']}", flush=True)
+
+
+def phase_pe(trim_cuda, card, device, workdir):
+    from sickle_tpu_torch import cli, oracle
+    from sickle_tpu_torch.constants import QualityType
+    from sickle_tpu_torch.engine.checkpoint import TrimCheckpoint
+    from sickle_tpu_torch.utils.corpus import write_pairs
+
+    launches = 0
+    # two-file 2x150: the combined batch, uniform form
+    r1 = os.path.join(workdir, "pe.1.fastq")
+    r2 = os.path.join(workdir, "pe.2.fastq")
+    t0 = time.perf_counter()
+    with open(r1, "wb") as f1, open(r2, "wb") as f2:
+        size = write_pairs(f1, f2, 4242, N_PE_PAIRS, length=150,
+                           bad_tail=0.001)
+    print(f"pe input: {N_PE_PAIRS} pairs of 2x150 bp, {size} bytes over two "
+          f"files, written in {time.perf_counter() - t0:.1f} s", flush=True)
+    base = ["pe", "-f", r1, "-r", r2, "-t", "sanger", "-q", "20"]
+
+    def two_file(tag):
+        outs = [os.path.join(workdir, f"pe_{tag}.{k}.fastq") for k in "ops"]
+        return base + [x for k, o in zip("ops", outs)
+                       for x in (f"-{k}", o)], outs
+
+    runs, outs, summary, n = _pe_turns(
+        trim_cuda, cli, device, lambda k: two_file(k),
+        ("host", "device", "device", "host"), N_PE_PAIRS, "combined")
+    launches += n
+    _print_pe_runs("two-file 2x150", runs, N_PE_PAIRS)
+    dev_outs = [os.path.join(workdir, f"pe_1.{k}.fastq") for k in "ops"]
+    with open(r1, "rb") as f1, open(r2, "rb") as f2:
+        h1 = b"".join(f1.readline() for _ in range(4 * 2000))
+        h2 = b"".join(f2.readline() for _ in range(4 * 2000))
+    want = oracle.trim_pe(h1, h2, qualtype=QualityType.SANGER)
+    # the oracle's outputs are prefixes of the device run's: pairs keep
+    # their order in every output stream
+    for path, w in zip(dev_outs, want[:3]):
+        with open(path, "rb") as f:
+            check(f.read(len(w)) == w,
+                  f"first 2,000 pairs disagree with the oracle in {path}")
+    c = want[3]
+    print(f"pe oracle: first 2000 pairs of a device run agree ({c.kept_p // 2} "
+          f"pairs kept, {c.kept_s1 + c.kept_s2} singles)", flush=True)
+    print("pe summary: " + " | ".join(
+        ln for ln in summary.splitlines() if ln.startswith(("Total", "FastQ"))),
+        flush=True)
+    best = {m: min(w for mm, w, _, _ in runs if mm == m)
+            for m in ("device", "host")}
+    print(f"pe e2e on {card}: device {N_PE_PAIRS / best['device']:.0f} pairs/s "
+          f"(best of 2: {best['device']:.3f} s), --cuts host "
+          f"{N_PE_PAIRS / best['host']:.0f} pairs/s ({best['host']:.3f} s); "
+          f"device/host {best['host'] / best['device']:.3f}; all outputs "
+          f"identical", flush=True)
+
+    # --checkpoint on the same input: the same bytes, every record done
+    ck = os.path.join(workdir, "pe.ck.json")
+    argv, ck_outs = two_file("ck")
+    trim_cuda.LAUNCHES = 0
+    rc, so, se, wall = _run_cli(cli, argv + ["--checkpoint", ck], device)
+    check(rc == 0, f"pe --checkpoint run exited {rc}: {se[-2000:]}")
+    check(trim_cuda.LAUNCHES > 0, "the checkpointed pe run never launched")
+    launches += trim_cuda.LAUNCHES
+    check(so == summary, "the checkpointed pe run's summary differs")
+    for a, b in zip(ck_outs, dev_outs):
+        check(_same_file(a, b), f"checkpointed output {a} differs")
+    done = TrimCheckpoint(ck).load().records_done
+    check(done == 2 * N_PE_PAIRS, f"checkpoint records_done {done}")
+    print(f"pe --checkpoint device run: {wall:.3f} s wall, outputs equal the "
+          f"plain device run's, records_done {done}", flush=True)
+    for path in [r1, r2] + outs + dev_outs + ck_outs:
+        os.unlink(path)
+
+    # interleaved -M, ragged 30-160 bp: the generic form
+    ri = os.path.join(workdir, "pe.i.fastq")
+    with open(ri, "wb") as f:
+        write_pairs(f, None, 4343, N_PE_RAGGED, length=(30, 160),
+                    bad_tail=0.001)
+
+    def inter(k):
+        out = os.path.join(workdir, f"pe_M{k}.fastq")
+        return ["pe", "-c", ri, "-t", "sanger", "-M", out], [out]
+
+    runs, outs, _, n = _pe_turns(trim_cuda, cli, device, inter,
+                                 ("host", "device"), N_PE_RAGGED,
+                                 "interleaved")
+    launches += n
+    _print_pe_runs("interleaved -M ragged 30-160", runs, N_PE_RAGGED)
+
+    # two-file, mate 2 growing each chunk: every chunk takes the split route
+    s1 = os.path.join(workdir, "split.1.fastq")
+    s2 = os.path.join(workdir, "split.2.fastq")
+    with open(s1, "wb") as f1, open(s2, "wb") as f2:
+        for k in range(PE_SPLIT_CHUNKS):
+            write_pairs(f1, f2, 4444 + k, PE_CHUNK, first=k * PE_CHUNK,
+                        mate1=dict(length=40),
+                        mate2=dict(length=(40, 64 + 24 * k)), bad_tail=0.001)
+    n_split = PE_SPLIT_CHUNKS * PE_CHUNK
+
+    def split(k):
+        outs = [os.path.join(workdir, f"split{k}.{x}.fastq") for x in "ops"]
+        return (["pe", "-f", s1, "-r", s2, "-t", "sanger"]
+                + [a for x, o in zip("ops", outs) for a in (f"-{x}", o)], outs)
+
+    runs, _, _, n = _pe_turns(trim_cuda, cli, device, split,
+                              ("host", "device"), n_split, "split")
+    check(runs[1][2]["routes"]["split"] == PE_SPLIT_CHUNKS,
+          f"split routes {runs[1][2]['routes']}")
+    launches += n
+    _print_pe_runs("two-file split route", runs, n_split)
+    return launches
+
+
 def _metrics(stderr: str) -> dict:
     lines = [ln for ln in stderr.splitlines() if ln.startswith("metrics: ")]
     check(lines, "a --metrics run printed no metrics line")
@@ -385,6 +563,7 @@ def main() -> int:
     workdir = tempfile.mkdtemp(prefix="sickle_smoke_")
     try:
         launches = phase_e2e(trim_cuda, card, dev, workdir)
+        launches += phase_pe(trim_cuda, card, dev, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(json.dumps({"kernels": [{

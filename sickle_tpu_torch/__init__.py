@@ -1,6 +1,6 @@
 """sickle-tpu-torch: the PyTorch + CUDA port of sickle-tpu.
 
-The same drop-in ``sickle se`` trimmer as the JAX package beside it
+The same drop-in ``sickle se|pe`` trimmer as the JAX package beside it
 (``sickle_tpu``), with the device step rebuilt as a hand-written CUDA
 kernel for Hopper (``csrc/trim_cuts.cu``).  The host layers (C++ parse /
 pack / emit, the record model, the three-stage engine) keep the JAX

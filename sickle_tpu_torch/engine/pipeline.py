@@ -1,4 +1,4 @@
-"""Pipelined se trimming (the se slice of the JAX package's engine).
+"""Pipelined se/pe trimming (the JAX package's engine on the CUDA port).
 
 Three overlapped stages with deterministic, order-preserving output
 (unlike the reference's racy detached writer, SURVEY.md §2.4.3):
@@ -8,9 +8,12 @@ Three overlapped stages with deterministic, order-preserving output
   [writer thread]    materialize + assemble + write chunk i-1
 
 Chunks hold a fixed record count, so device shapes stay constant.
-Counters are exact and global.  The device step is ``_cuda_cuts_fn``: one
-hand-written CUDA kernel launch per ``[slice_rows, L]`` piece
-(``ops/trim_cuda.py``).  Paired-end (``run_pe``) is not ported yet.
+Counters are exact and global (the reference's pe ``total`` bug,
+SURVEY.md §2.4.7, is not reproduced).  The device step is
+``_cuda_cuts_fn``: one hand-written CUDA kernel launch per
+``[slice_rows, L]`` piece (``ops/trim_cuda.py``).  Rows are always
+packed: the hybrid router's indexed host mode and the wire formats are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import os
 import queue
 import stat as _stat
 import threading
-from typing import BinaryIO, Callable, Optional, Tuple
+from typing import BinaryIO, Callable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,13 +36,21 @@ from ..io.fastq import (
     OutputBuffer,
     PackedReads,
     PackWorkspace,
+    _clamp_bm,
+    _round_up,
     assemble_records,
     assemble_records_at,
     pack_fastq,
     pack_fastq_stream,
     record_out_sizes,
 )
-from ..oracle import SECounters, decode_qual, sliding_window_cuts
+from ..oracle import (
+    FastqValidationError,
+    PECounters,
+    SECounters,
+    decode_qual,
+    sliding_window_cuts,
+)
 from ..ops.trim import BIG, TrimParams
 from ..utils.metrics import Metrics, maybe as _stage
 from .chunker import iter_record_chunks
@@ -62,11 +73,16 @@ def _idx_layout(packed):
     return None
 
 
-def _plan_assemble_fast(out_stream, packed, five, three, compat):
+def _plan_assemble_fast(out_stream, packed, five, three, compat,
+                        three_mask=None):
     """Fused emit: one native call (sk_plan_assemble) does the
     keep-filter, per-record sizes, prefix offsets, and record assembly
     straight into the output mapping, reading the parse line index
     in place — no numpy gathers, no intermediate arrays.
+
+    ``three_mask``: optional bool[n] — rows where it is False are
+    dropped (pe pair/single routing: the caller selects which records
+    this stream gets by masking, order preserved).
 
     Returns ``(kept, bytes)`` or ``(None, 0)`` when the chunk/stream
     can't take the fused path (no reserve protocol, no stride-4 index
@@ -81,6 +97,8 @@ def _plan_assemble_fast(out_stream, packed, five, three, compat):
 
     ns_view, nl_view = idx
     three = np.ascontiguousarray(three, np.int32)
+    if three_mask is not None:
+        three = np.where(three_mask, three, -1).astype(np.int32)
     five = np.ascontiguousarray(five, np.int32)
     # output bound: each record's emission never exceeds its source
     # extent +1 (a rewritten '+' can outgrow an EMPTY comment line);
@@ -105,8 +123,8 @@ def _plan_assemble_fast(out_stream, packed, five, three, compat):
     return int(out_kept[0]), int(total)
 
 
-def _emit_records(out_stream, data, fields, five, three, compat,
-                  outbuf) -> int:
+def _emit_records(out_stream, data, fields, five, three, compat, qualtype,
+                  outbuf, n_record_mask=None) -> int:
     """Assemble one chunk's (already filtered/ordered) records and emit
     them to ``out_stream``; returns bytes written.
 
@@ -121,7 +139,7 @@ def _emit_records(out_stream, data, fields, five, three, compat,
     reserve = getattr(out_stream, "reserve", None)
     if reserve is not None and native.available():
         sizes = record_out_sizes(fields["name_len"], fields["comment_len"],
-                                 five, three, compat)
+                                 five, three, compat, n_record_mask)
         offsets = np.zeros(k, np.int64)
         if k > 1:
             np.cumsum(sizes[:-1], out=offsets[1:])
@@ -129,12 +147,14 @@ def _emit_records(out_stream, data, fields, five, three, compat,
         buf, start = reserve(total)
         assemble_records_at(
             data, **fields, five=five, three=three, offsets=offsets + start,
-            out_buf=buf, compat=compat,
+            out_buf=buf, compat=compat, n_record_mask=n_record_mask,
+            qualtype=qualtype,
         )
         out_stream.commit(total)
         return total
     b = assemble_records(
-        data, **fields, five=five, three=three, compat=compat, out=outbuf,
+        data, **fields, five=five, three=three, compat=compat,
+        n_record_mask=n_record_mask, qualtype=qualtype, out=outbuf,
     )
     out_stream.write(b)
     return len(b)
@@ -188,6 +208,12 @@ class EngineConfig:
     # exploding host/device memory (SURVEY.md §5.7)
     bytes_per_batch: int = 64 << 20
     slice_rows: int = 1 << 16
+    # checkpoint/resume (SURVEY.md §5.3): fast-forward this many input
+    # records (pe: total mates, even) before processing, and call
+    # ``progress_cb(counters)`` after each chunk's output is written —
+    # deterministic output makes "records done" a complete restart state
+    skip_records: int = 0
+    progress_cb: Optional[Callable[[object], None]] = None
     # per-chunk stage timing collector (SURVEY.md §5.1); CLI --metrics.
     # None = zero-overhead no-op.
     metrics: Optional[Metrics] = None
@@ -326,11 +352,13 @@ def _bgzf_source(stream, stop) -> Optional[_BgzfSource]:
 
 
 def _produce_bgzf(src, pipe, state, mtr, params, eff_fn, put,
-                  batch_bytes=None):
-    """Zero-copy BGZF producer loop: pack records in place from the
-    decode window, extending the span (never advancing past
-    partial-record bytes) when a record straddles a window.  ``put``
-    consumes each finished chunk (position bookkeeping + queue put)."""
+                  batch_bytes=None, pair_align=False):
+    """Shared zero-copy BGZF producer loop (se and interleaved pe): pack
+    records in place from the decode window, extending the span (never
+    advancing past partial-record bytes) when a record straddles a
+    window, and — for interleaved pairs — handing an odd trailing record
+    back to the stream so pairs stay whole.  ``put`` consumes each
+    finished chunk (position bookkeeping + queue put)."""
     try:
         while True:
             eff, bm = eff_fn()
@@ -363,7 +391,24 @@ def _produce_bgzf(src, pipe, state, mtr, params, eff_fn, put,
                     src.pos += consumed  # true EOF: partial dropped
                     break
                 continue
+            if pair_align and n % 2 and src.r.peek_window_bytes() > 0:
+                # keep pairs whole across window boundaries: hand the odd
+                # record back to the stream (it leads the next chunk); at
+                # true EOF the odd count stands and errors like the
+                # reference.  The dropped row becomes padding again
+                # (zero qual, length 0), as the device step requires.
+                n -= 1
+                consumed = int(ws.starts4[4 * n])
+                packed.n_records = n
+                packed.lengths[n] = 0
+                packed.qual[n] = 0
             src.pos += consumed
+            if n == 0:
+                # the odd-carry emptied a single-record window: extend
+                pipe.ws_pool.put(ws)
+                if not src.refill(min_total=2 * want):
+                    break
+                continue
             if mtr is not None:
                 mtr.add_chunk(n, consumed)
             state["l_max"] = max(state["l_max"], packed.max_len)
@@ -375,6 +420,24 @@ def _produce_bgzf(src, pipe, state, mtr, params, eff_fn, put,
         src.close()
 
 
+def _skip_offset(arr: np.ndarray, offset: int, n_lines: int) -> Optional[int]:
+    """Byte offset just past the ``n_lines``-th newline at/after ``offset``
+    (checkpoint fast-forward), or None if the buffer has fewer lines."""
+    if n_lines == 0:
+        return offset
+    import ctypes
+
+    lib = native.get_lib()
+    view = arr[offset:]
+    if lib is not None:
+        pos = int(lib.sk_kth_newline(native.ptr(view, ctypes.c_uint8),
+                                     view.size, n_lines))
+    else:
+        nl = np.flatnonzero(view == 0x0A)
+        pos = int(nl[n_lines - 1]) if nl.size >= n_lines else -1
+    return None if pos < 0 else offset + pos + 1
+
+
 def _effective_chunk(cfg: EngineConfig, l_max: int) -> Tuple[int, int]:
     """(records, batch_multiple) for the next chunk, bounded so one padded
     batch stays within ``cfg.bytes_per_batch``.  150 bp reads keep the
@@ -382,6 +445,7 @@ def _effective_chunk(cfg: EngineConfig, l_max: int) -> Tuple[int, int]:
     with a matching power-of-two padding multiple."""
     L = max(l_max, 8)
     eff = min(cfg.records_per_chunk, max(8, cfg.bytes_per_batch // L))
+    eff &= ~1  # pe interleaved packs mates adjacently; keep pairs whole
     if eff >= cfg.slice_rows:
         return eff, cfg.slice_rows
     return eff, max(8, 1 << (eff.bit_length() - 1))
@@ -729,8 +793,13 @@ def run_se(
     *,
     cfg: Optional[EngineConfig] = None,
     cuts_fn: Optional[CutsFn] = None,
+    counters: Optional[SECounters] = None,
 ) -> SECounters:
-    """Trim a single-end stream; returns exact global counters."""
+    """Trim a single-end stream; returns exact global counters.
+
+    Pass ``counters`` (and ``cfg.skip_records``) to resume a partial run:
+    skipped records are fast-forwarded without compute or output.
+    """
     cfg = cfg or EngineConfig()
     cuts_fn = _adapt_cuts_fn(
         cuts_fn or _cuda_cuts_fn(params, "cuda", cfg.slice_rows))
@@ -740,8 +809,8 @@ def run_se(
     window = _finalize_window(cuts_fn)
     pipe = _Pipeline(cfg.prefetch, n_workspaces=cfg.prefetch + 2 + window,
                      need_seq=params.trunc_n)
-    counters = SECounters()
-    state = {"consumed": 0, "l_max": 0, "est": 0}
+    counters = counters if counters is not None else SECounters()
+    state = {"consumed": cfg.skip_records, "l_max": 0, "est": 0}
     outbuf = _outbuf_checkout()
     mtr = cfg.metrics
 
@@ -751,7 +820,8 @@ def run_se(
         if mapped is not None:
             # zero-copy: parse fixed-record chunks straight from the mmap
             arr, off = mapped
-            while off < arr.size:
+            off = _skip_offset(arr, off, 4 * cfg.skip_records)
+            while off is not None and off < arr.size:
                 ws = pipe.get_workspace()
                 eff, bm = _effective_chunk(cfg, state["l_max"])
                 with _stage(mtr, "pack"):
@@ -776,7 +846,8 @@ def run_se(
                 state["est"] = max(state["est"], -(-consumed // packed.n_records))
                 pipe.pack_q.put(packed)
             return
-        src = _bgzf_source(in_stream, pipe.stop)
+        src = (_bgzf_source(in_stream, pipe.stop)
+               if cfg.skip_records == 0 else None)
         if src is not None:
             # zero-copy gzip: BGZF windows inflate straight into the pack
             # source buffer; records parse in place (see _BgzfSource)
@@ -791,6 +862,7 @@ def run_se(
         for chunk in iter_record_chunks(
             in_stream,
             lambda: _effective_chunk(cfg, state["l_max"])[0],
+            skip_records=cfg.skip_records,
             max_chunk_bytes=3 * cfg.bytes_per_batch,
         ):
             with _stage(mtr, "pack"):
@@ -845,7 +917,7 @@ def run_se(
                         out_stream, packed.data, _sel(packed, idx),
                         five[idx].astype(np.int64),
                         three[idx].astype(np.int64),
-                        cfg.compat, outbuf,
+                        cfg.compat, params.qualtype, outbuf,
                     )
             counters.kept += kept
             counters.discarded += n - kept
@@ -853,6 +925,8 @@ def run_se(
             if mtr is not None:
                 mtr.add_out_bytes(nbytes)
             pipe.recycle(packed)
+        if cfg.progress_cb is not None:
+            cfg.progress_cb(counters)
 
     try:
         pipe.run(producer, dispatcher, consume, finalize=finalize,
@@ -862,12 +936,646 @@ def run_se(
     return counters
 
 
-def _sel(packed: PackedReads, idx: np.ndarray) -> dict:
-    return dict(
-        name_start=packed.name_start[idx],
-        name_len=packed.name_len[idx],
-        seq_start=packed.seq_start[idx],
-        comment_start=packed.comment_start[idx],
-        comment_len=packed.comment_len[idx],
-        qual_start=packed.qual_start[idx],
+# ---------------------------------------------------------------------------
+# Paired-end
+# ---------------------------------------------------------------------------
+
+
+def _pair_chunks_two_file(
+    in1: BinaryIO, in2: BinaryIO, records_per_chunk, skip_each: int = 0,
+    max_chunk_bytes: int = 0,
+) -> Iterator[Tuple[bytes, bytes]]:
+    # Only file 1 is byte-capped; file 2 follows file 1's exact record
+    # count, so a short (byte-capped) chunk can never desynchronize the
+    # pair streams even when mate record sizes differ.
+    follow = {"n": 0}
+    it1 = iter_record_chunks(in1, records_per_chunk, skip_records=skip_each,
+                             max_chunk_bytes=max_chunk_bytes)
+    it2 = iter_record_chunks(in2, lambda: follow["n"], skip_records=skip_each)
+    while True:
+        c1 = next(it1, None)
+        if c1 is not None:
+            nl = c1.count(b"\n")
+            if not c1.endswith(b"\n"):
+                nl += 1
+            follow["n"] = max(nl // 4, 1)
+        c2 = next(it2, None)
+        if c1 is None and c2 is None:
+            return
+        if c1 is None or c2 is None:
+            raise FastqValidationError(
+                "Batch2 and Batch1 have different lengths, exiting"
+            )
+        yield c1, c2
+
+
+def run_pe(
+    in1: BinaryIO,
+    in2: Optional[BinaryIO],
+    *,
+    interleaved: bool = False,
+    out1: Optional[BinaryIO] = None,
+    out2: Optional[BinaryIO] = None,
+    singles_out: Optional[BinaryIO] = None,
+    n_record_mode: bool = False,
+    params: TrimParams,
+    cfg: Optional[EngineConfig] = None,
+    cuts_fn: Optional[CutsFn] = None,
+    counters: Optional[PECounters] = None,
+) -> PECounters:
+    """Trim a paired-end stream.
+
+    Modes (reference src/trim_paired.cpp:626-731):
+    * two-file: ``in1``/``in2`` -> ``out1``/``out2`` + ``singles_out``
+    * interleaved (-c -m): ``in1`` -> ``out1`` (interleaved) + ``singles_out``
+    * interleaved -M (``n_record_mode``): ``in1`` -> ``out1`` with failed
+      mates replaced by N records (pairing preserved); no singles file.
+
+    Pair decision per src/trim_paired.cpp:543-567: both pass -> pair
+    outputs; one passes -> singles (or N record); neither -> discarded
+    (or two N records).
+
+    Device batches: interleaved chunks ship as one ``[2n, L]`` batch
+    (mates adjacent).  Two-file chunks from regular files ship as one
+    combined batch too (mate-1 rows, then mate-2 rows, packed into one
+    workspace), or — when mate-2 rows outgrow mate-1's row stride — as
+    two batches, one per mate file (the "split" route).
+    """
+    cfg = cfg or EngineConfig()
+    cuts_fn = _adapt_cuts_fn(
+        cuts_fn or _cuda_cuts_fn(params, "cuda", cfg.slice_rows))
+    window = _finalize_window(cuts_fn)  # see run_se
+    # two-file runs check out one workspace per mate file per chunk
+    pipe = _Pipeline(cfg.prefetch,
+                     n_workspaces=(cfg.prefetch + 2 + window)
+                     * (1 if interleaved else 2),
+                     need_seq=params.trunc_n)
+    counters = counters if counters is not None else PECounters()
+    if cfg.skip_records % 2:
+        raise ValueError("pe skip_records must be even (whole pairs)")
+    state = {"consumed": cfg.skip_records, "l_max": 0, "est": 0}
+    outbuf = _outbuf_checkout()
+    mtr = cfg.metrics
+
+    def eff_chunk():
+        """Per-chunk (records, batch_multiple), byte-capped for long reads.
+        Both are even (whole pairs; mates packed adjacently always land in
+        the same padded batch)."""
+        eff, bm = _effective_chunk(cfg, state["l_max"])
+        if bm % 2:
+            bm *= 2
+        return eff, bm
+
+    def pack(chunk: bytes) -> PackedReads:
+        with _stage(mtr, "pack"):
+            packed = pack_fastq(
+                chunk,
+                start_position=state["consumed"],
+                l_max=state["l_max"],
+                batch_multiple=eff_chunk()[1],
+                workspace=pipe.get_workspace(),
+                need_seq=params.trunc_n,
+                batch_bytes=cfg.bytes_per_batch,
+            )
+        if mtr is not None:
+            mtr.add_chunk(packed.n_records, len(chunk))
+        state["l_max"] = max(state["l_max"], packed.max_len)
+        return packed
+
+    def put_interleaved(packed: PackedReads):
+        if packed.n_records % 2:
+            raise FastqValidationError(
+                "Reading interleaved pair: read1 loaded, but no read2 "
+                "to load. Maybe it's not an interleaved file?"
+            )
+        state["consumed"] += packed.n_records
+        pipe.pack_q.put((packed, None))
+
+    def producer():
+        if interleaved:
+            mapped = _mmap_input(in1) if native.available() else None
+            if mapped is not None:  # zero-copy (see run_se)
+                arr, off = mapped
+                off = _skip_offset(arr, off, 4 * cfg.skip_records)
+                while off is not None and off < arr.size:
+                    ws = pipe.get_workspace()
+                    eff, bm = eff_chunk()
+                    with _stage(mtr, "pack"):
+                        packed, consumed = pack_fastq_stream(
+                            arr, off, eff,
+                            start_position=state["consumed"],
+                            l_max=state["l_max"],
+                            batch_multiple=bm,
+                            workspace=ws,
+                            need_seq=params.trunc_n,
+                            est_rec_bytes=state["est"],
+                        )
+                    off += consumed
+                    if packed.n_records == 0:
+                        pipe.ws_pool.put(ws)
+                        break
+                    if mtr is not None:
+                        mtr.add_chunk(packed.n_records, consumed)
+                    state["l_max"] = max(state["l_max"], packed.max_len)
+                    state["est"] = max(
+                        state["est"], -(-consumed // packed.n_records)
+                    )
+                    put_interleaved(packed)
+                return
+            src = (_bgzf_source(in1, pipe.stop)
+                   if cfg.skip_records == 0 else None)
+            if src is not None:  # zero-copy gzip (see run_se)
+                _produce_bgzf(src, pipe, state, mtr, params, eff_chunk,
+                              put_interleaved, pair_align=True)
+                return
+            for chunk in iter_record_chunks(in1, lambda: eff_chunk()[0],
+                                            skip_records=cfg.skip_records,
+                                            max_chunk_bytes=3 * cfg.bytes_per_batch,
+                                            align_records=2):
+                put_interleaved(pack(chunk))
+        else:
+            m1 = _mmap_input(in1) if native.available() else None
+            m2 = _mmap_input(in2) if native.available() else None
+            if m1 is not None and m2 is not None:
+                _produce_two_file_mmap(m1, m2)
+                return
+            # pack both mate files' chunks as ONE batch (mate-2 rows after
+            # mate-1 rows): one device call per chunk, one shared source
+            # buffer for output assembly (incl. mixed-source singles)
+            for c1, c2 in _pair_chunks_two_file(
+                in1, in2,
+                lambda: max(eff_chunk()[0] // 2, 4),
+                skip_each=cfg.skip_records // 2,
+                max_chunk_bytes=3 * cfg.bytes_per_batch,
+            ):
+                if not c1.endswith(b"\n"):
+                    c1 += b"\n"  # keep c2's first line separate at EOF
+                n1 = c1.count(b"\n") // 4
+                packed = pack(c1 + c2)
+                if packed.n_records != 2 * n1:
+                    raise FastqValidationError(
+                        "Batch2 and Batch1 have different lengths, exiting"
+                    )
+                state["consumed"] += packed.n_records
+                pipe.pack_q.put((packed, n1))
+
+    def _produce_two_file_mmap(m1, m2):
+        """Zero-copy two-file producer, ONE device batch per chunk: both
+        mate files are parsed straight from their mmaps into one shared
+        workspace (mate-2 rows after mate-1 rows via an offset view), so
+        the chunk ships as a single combined [2*n1, L] dispatch.  The
+        per-mate index metadata stays separate (two source buffers) for
+        output assembly.  Record positions are per input file, as in the
+        reference's two readers (src/trim_paired.cpp:670-680).
+
+        Falls back to two independent batches for a chunk when the
+        combined pack cannot share one row stride (row-length growth
+        discovered mid-chunk).  Queue items are ``((pk1, pk2, comb),
+        None)``; ``comb`` is the combined batch, or None for the split
+        route."""
+        arr1, off1 = m1
+        arr2, off2 = m2
+        skip_each = cfg.skip_records // 2
+        off1 = _skip_offset(arr1, off1, 4 * skip_each)
+        off2 = _skip_offset(arr2, off2, 4 * skip_each)
+        pos = skip_each
+        while True:
+            pk1 = pk2 = comb = None
+            n1 = n2 = 0
+            c1 = c2 = 0
+            eff, bm = eff_chunk()
+            with _stage(mtr, "pack"):
+                ws1 = None
+                if off1 is not None and off1 < arr1.size:
+                    ws1 = pipe.get_workspace()
+                    # reserve rows for BOTH mates up front: a later
+                    # ensure() would reallocate and drop mate-1's rows
+                    ws1.ensure(2 * eff + bm,
+                               _round_up(max(state["l_max"], 1), 8), bm)
+                    pk1, c1 = pack_fastq_stream(
+                        arr1, off1, eff, start_position=pos,
+                        l_max=state["l_max"], batch_multiple=bm,
+                        workspace=ws1, need_seq=params.trunc_n,
+                        est_rec_bytes=state["est"],
+                        batch_bytes=cfg.bytes_per_batch,
+                    )
+                    off1 += c1
+                    state["l_max"] = max(state["l_max"], pk1.max_len)
+                    n1 = pk1.n_records
+                    if n1:
+                        state["est"] = max(state["est"], -(-c1 // n1))
+                    else:
+                        pipe.ws_pool.put(ws1)
+                        ws1 = pk1 = None
+                if off2 is not None and off2 < arr2.size:
+                    ws2 = (_OffsetWorkspace(ws1, n1, pk1.max_len)
+                           if n1 else pipe.get_workspace())
+                    try:
+                        pk2, c2 = pack_fastq_stream(
+                            arr2, off2, n1 if n1 else 1, start_position=pos,
+                            l_max=pk1.max_len if n1 else state["l_max"],
+                            batch_multiple=bm,
+                            workspace=ws2, need_seq=params.trunc_n,
+                            est_rec_bytes=state["est"],
+                            batch_bytes=cfg.bytes_per_batch,
+                        )
+                    except _OffsetOverflow:
+                        # mate-2 rows outgrow the shared stride: repack
+                        # this chunk as two independent batches.  The
+                        # failed facade pack may have scribbled on pk1's
+                        # padding rows — restore the all-zero invariant
+                        # the device step derives lengths from.
+                        if pk1.n_records < pk1.batch_size:
+                            pk1.qual[pk1.n_records:] = 0
+                            pk1.lengths[pk1.n_records:] = 0
+                        ws2 = pipe.get_workspace()
+                        pk2, c2 = pack_fastq_stream(
+                            arr2, off2, n1 if n1 else 1, start_position=pos,
+                            l_max=state["l_max"], batch_multiple=bm,
+                            workspace=ws2, need_seq=params.trunc_n,
+                            est_rec_bytes=state["est"],
+                            batch_bytes=cfg.bytes_per_batch,
+                        )
+                    off2 += c2
+                    state["l_max"] = max(state["l_max"], pk2.max_len)
+                    n2 = pk2.n_records
+                    if isinstance(ws2, _OffsetWorkspace):
+                        pk2.workspace = None  # ws1 owns the rows
+                        if n2 == n1:
+                            comb = _combined_pair_batch(pk1, pk2, ws1, bm)
+                    if n2 == 0:
+                        if not isinstance(ws2, _OffsetWorkspace):
+                            pipe.ws_pool.put(ws2)
+                        pk2 = None
+            if n1 != n2:
+                pipe.recycle(pk1, pk2)
+                raise FastqValidationError(
+                    "Batch2 and Batch1 have different lengths, exiting"
+                )
+            if n1 == 0:
+                return
+            if mtr is not None:
+                mtr.add_chunk(2 * n1, c1 + c2)
+            pos += n1
+            state["consumed"] += 2 * n1
+            pipe.pack_q.put(((pk1, pk2, comb), None))
+
+    def dispatcher(item):
+        # device work is only started here; fetch deferred to finalize
+        packed, n1 = item
+        mul = 2 if params.trunc_n else 1
+
+        def call(pk):
+            return cuts_fn(pk.seq, pk.qual, pk.lengths,
+                           qual_clean=pk.qual_clean)
+
+        if isinstance(packed, tuple):  # mate batches (mmap producer)
+            pk1, pk2, comb = packed
+            if comb is not None:
+                # one combined [2*n1, L] dispatch: one set of pieces
+                with _stage(mtr, "dispatch", comb.qual.nbytes * mul):
+                    result = call(comb)
+                if mtr is not None:
+                    mtr.h2d_bytes[-1] = getattr(cuts_fn, "last_h2d",
+                                                comb.qual.nbytes * mul)
+                    mtr.add_route("combined")
+                return packed, n1, result
+            with _stage(mtr, "dispatch",
+                        (pk1.qual.nbytes + pk2.qual.nbytes) * mul):
+                r1 = call(pk1)
+                h2d = getattr(cuts_fn, "last_h2d", pk1.qual.nbytes * mul)
+                r2 = call(pk2)
+                h2d += getattr(cuts_fn, "last_h2d", pk2.qual.nbytes * mul)
+            if mtr is not None:  # bytes actually shipped by the device step
+                mtr.h2d_bytes[-1] = h2d
+                mtr.add_route("split")
+            return packed, n1, (r1, r2)
+        with _stage(mtr, "dispatch", packed.qual.nbytes * mul):
+            result = call(packed)
+        if mtr is not None:
+            mtr.h2d_bytes[-1] = getattr(cuts_fn, "last_h2d",
+                                        packed.qual.nbytes * mul)
+            mtr.add_route("interleaved" if interleaved else "combined")
+        return packed, n1, result
+
+    def finalize(item):
+        # both results of a split chunk are materialized here, in order
+        packed, n1, result = item
+        with _stage(mtr, "fetch"):
+            if isinstance(packed, tuple):
+                pk1, pk2, comb = packed
+                if comb is not None:
+                    f, t, bad = _materialize(result, comb.n_records)
+                    k = pk1.n_records
+                    mat = ((f[:k], t[:k], bad[:k]),
+                           (f[k:2 * k], t[k:2 * k], bad[k:2 * k]))
+                else:
+                    mat = (_materialize(result[0], pk1.n_records),
+                           _materialize(result[1], pk2.n_records))
+            else:
+                mat = _materialize(result, packed.n_records)
+        return packed, n1, mat
+
+    def consume(item):
+        packed, n1, result = item
+        with _stage(mtr, "consume"):
+            if interleaved:
+                _write_interleaved_chunk(packed, result, counters, out1,
+                                         singles_out, n_record_mode, params,
+                                         cfg, outbuf)
+                pipe.recycle(packed)
+            elif isinstance(packed, tuple):
+                p1k, p2k, _ = packed
+                r1, r2 = result
+                _write_two_file_chunk(p1k, p2k, r1, r2, counters, out1, out2,
+                                      singles_out, params, cfg, outbuf)
+                pipe.recycle(p1k, p2k)
+            else:
+                p1, p2 = _split_packed(packed, n1)
+                f, t, bad = result
+                r1 = (f[:n1], t[:n1], bad[:n1])
+                r2 = (f[n1:], t[n1:], bad[n1:])
+                _write_two_file_chunk(p1, p2, r1, r2, counters, out1, out2,
+                                      singles_out, params, cfg, outbuf)
+                pipe.recycle(packed)
+        if cfg.progress_cb is not None:
+            cfg.progress_cb(counters)
+
+    try:
+        pipe.run(producer, dispatcher, consume, finalize=finalize,
+                 window=window)
+    finally:
+        _outbuf_return(outbuf)
+    return counters
+
+
+class _OffsetOverflow(Exception):
+    """Mate-2 rows cannot share mate-1's row stride/capacity (row-length
+    growth discovered mid-chunk); the producer repacks the chunk as two
+    independent batches."""
+
+
+class _OffsetWorkspace:
+    """PackWorkspace view starting at record ``row0`` with a FIXED row
+    stride: the combined pe batch packs mate-2's rows/index right after
+    mate-1's in the same buffers, so the chunk dispatches as one device
+    batch.  ``ensure`` never reallocates — any growth request raises
+    :class:`_OffsetOverflow` (rows before ``row0`` would be lost)."""
+
+    def __init__(self, ws: PackWorkspace, row0: int, stride: int):
+        self._stride = stride
+        self.capacity = ws.capacity - row0
+        self.L = stride
+        self.need_seq = ws.need_seq
+        self.est_rec_bytes = ws.est_rec_bytes
+        self.starts4 = ws.starts4[4 * row0:]
+        self.lens4 = ws.lens4[4 * row0:]
+        self.lengths = ws.lengths[row0:]
+        flat = ws.qual.reshape(-1)
+        self.qual = flat[row0 * stride:]
+        if ws.need_seq:
+            self.seq = ws.seq.reshape(-1)[row0 * stride:]
+        else:
+            self.seq = self.qual
+
+    def ensure(self, max_records: int, L: int, batch_multiple: int) -> None:
+        B = _round_up(max(max_records, 1), batch_multiple)
+        if L != self._stride or B > self.capacity:
+            raise _OffsetOverflow()
+
+
+def _combined_pair_batch(pk1: PackedReads, pk2: PackedReads,
+                         ws: PackWorkspace, bm: int) -> PackedReads:
+    """One [2*n1, L] batch over rows packed back to back in ``ws``
+    (mate-1 then mate-2).  Index metadata stays on pk1/pk2 (two source
+    buffers); this object only carries the fused rows for dispatch.
+
+    Rows past mate-2's own padded batch are zeroed here, on the producer
+    thread, before dispatch: the device step derives lengths from the
+    zero padding, and those rows may still hold an earlier chunk's
+    bytes."""
+    n1 = pk1.n_records
+    L = pk1.seq.shape[1]
+    total = 2 * n1
+    B = _round_up(total, _clamp_bm(bm, total, L, None))
+    flat_q = ws.qual.reshape(-1)
+    qual = flat_q[: B * L].reshape(B, L)
+    seq = (ws.seq.reshape(-1)[: B * L].reshape(B, L) if ws.need_seq else qual)
+    covered = n1 + pk2.batch_size  # pk2's own pack zeroed up to here
+    if B > covered:
+        qual[covered:] = 0
+        ws.lengths[covered:B] = 0
+    return dataclasses.replace(
+        pk1,
+        seq=seq,
+        qual=qual,
+        lengths=ws.lengths[:B],
+        n_records=total,
+        workspace=None,  # pk1 owns/recycles the real workspace
+        qual_clean=pk1.qual_clean and pk2.qual_clean,
     )
+
+
+def _split_packed(packed: PackedReads, n1: int):
+    """Two logical PackedReads views over one combined two-file batch
+    (mate-1 rows [0, n1), mate-2 rows [n1, 2*n1); same data buffer)."""
+
+    def view(lo, hi):
+        return dataclasses.replace(
+            packed,
+            lengths=packed.lengths[lo:hi],
+            name_start=packed.name_start[lo:hi],
+            name_len=packed.name_len[lo:hi],
+            seq_start=packed.seq_start[lo:hi],
+            comment_start=packed.comment_start[lo:hi],
+            comment_len=packed.comment_len[lo:hi],
+            qual_start=packed.qual_start[lo:hi],
+            positions=packed.positions[lo:hi],
+            n_records=hi - lo,
+            workspace=None,
+        )
+
+    return view(0, n1), view(n1, 2 * n1)
+
+
+def _sel(packed: PackedReads, idx: np.ndarray, offset: int = 0) -> dict:
+    return dict(
+        name_start=packed.name_start[idx] + offset,
+        name_len=packed.name_len[idx],
+        seq_start=packed.seq_start[idx] + offset,
+        comment_start=packed.comment_start[idx] + offset,
+        comment_len=packed.comment_len[idx],
+        qual_start=packed.qual_start[idx] + offset,
+    )
+
+
+def _interleave_fields(f1: dict, f2: dict, k: int) -> dict:
+    """Merge two per-pair field dicts into mate-interleaved order."""
+    out = {}
+    for key in f1:
+        a = np.empty(2 * k, dtype=np.asarray(f1[key]).dtype)
+        a[0::2] = f1[key]
+        a[1::2] = f2[key]
+        out[key] = a
+    return out
+
+
+def _update_pe_counters(c: PECounters, p1: np.ndarray, p2: np.ndarray):
+    both = p1 & p2
+    only1 = p1 & ~p2
+    only2 = p2 & ~p1
+    neither = ~p1 & ~p2
+    c.kept_p += 2 * int(both.sum())
+    c.kept_s1 += int(only1.sum())
+    c.kept_s2 += int(only2.sum())
+    c.discard_s2 += int(only1.sum())
+    c.discard_s1 += int(only2.sum())
+    c.discard_p += 2 * int(neither.sum())
+    c.total = c.kept_p + c.kept_s1 + c.kept_s2 + c.discard_p + c.discard_s1 + c.discard_s2
+
+
+def _write_interleaved_chunk(
+    packed, result, counters, out1, singles_out, n_record_mode, params, cfg,
+    outbuf=None,
+):
+    n = packed.n_records
+    five, three, first_bad = result  # materialized by finalize
+    five = five.astype(np.int64)
+    three = three.astype(np.int64)
+    _check_quality(packed, first_bad, params)
+    f1, t1 = five[0::2], three[0::2]
+    f2, t2 = five[1::2], three[1::2]
+    p1, p2 = t1 >= 0, t2 >= 0
+    _update_pe_counters(counters, p1, p2)
+    idx1 = np.arange(n)[0::2]
+    idx2 = np.arange(n)[1::2]
+
+    if n_record_mode:
+        # every pair appears; failed mates become N records
+        sel1 = _sel(packed, idx1)
+        sel2 = _sel(packed, idx2)
+        k = idx1.size
+        fields = _interleave_fields(sel1, sel2, k)
+        fv = np.empty(2 * k, np.int64)
+        tv = np.empty(2 * k, np.int64)
+        fv[0::2], fv[1::2] = np.maximum(f1, 0), np.maximum(f2, 0)
+        tv[0::2], tv[1::2] = np.maximum(t1, 0), np.maximum(t2, 0)
+        mask = np.empty(2 * k, bool)
+        mask[0::2], mask[1::2] = ~p1, ~p2
+        _emit_records(out1, packed.data, fields, fv, tv, cfg.compat,
+                      params.qualtype, outbuf, n_record_mask=mask)
+        return
+
+    both = p1 & p2
+    if both.any():
+        # fused fast path: both-pass pairs are the even/odd row pairs of
+        # the interleaved batch, selected by mask in record order
+        kf, _ = _plan_assemble_fast(out1, packed, five, three, cfg.compat,
+                                    three_mask=np.repeat(both, 2))
+        if kf is None:
+            kb = np.flatnonzero(both)
+            fields = _interleave_fields(
+                _sel(packed, idx1[kb]), _sel(packed, idx2[kb]), kb.size
+            )
+            fv = np.empty(2 * kb.size, np.int64)
+            tv = np.empty(2 * kb.size, np.int64)
+            fv[0::2], fv[1::2] = f1[kb], f2[kb]
+            tv[0::2], tv[1::2] = t1[kb], t2[kb]
+            _emit_records(out1, packed.data, fields, fv, tv, cfg.compat,
+                          params.qualtype, outbuf)
+    single = p1 ^ p2
+    if single.any() and singles_out is not None:
+        ks = np.flatnonzero(single)
+        take1 = p1[ks]
+        rows = np.where(take1, idx1[ks], idx2[ks])
+        mask_s = np.zeros(n, bool)
+        mask_s[rows] = True
+        kf, _ = _plan_assemble_fast(singles_out, packed, five, three,
+                                    cfg.compat, three_mask=mask_s)
+        if kf is None:
+            fv = np.where(take1, f1[ks], f2[ks])
+            tv = np.where(take1, t1[ks], t2[ks])
+            _emit_records(singles_out, packed.data, _sel(packed, rows), fv,
+                          tv, cfg.compat, params.qualtype, outbuf)
+
+
+def _write_two_file_chunk(
+    p1k, p2k, r1, r2, counters, out1, out2, singles_out, params, cfg,
+    outbuf=None,
+):
+    f1, t1, bad1 = r1  # materialized by finalize
+    f2, t2, bad2 = r2
+    f1, t1 = f1.astype(np.int64), t1.astype(np.int64)
+    f2, t2 = f2.astype(np.int64), t2.astype(np.int64)
+    _check_quality(p1k, bad1, params)
+    _check_quality(p2k, bad2, params)
+    p1, p2 = t1 >= 0, t2 >= 0
+    _update_pe_counters(counters, p1, p2)
+
+    both = p1 & p2
+    if both.any():
+        # fused fast path: mask-select the both-pass records in place
+        # (order preserved); numpy fallback for exotic layouts/sinks
+        k1, _ = _plan_assemble_fast(out1, p1k, f1, t1, cfg.compat,
+                                    three_mask=both)
+        k2, _ = _plan_assemble_fast(out2, p2k, f2, t2, cfg.compat,
+                                    three_mask=both)
+        kb = None
+        if k1 is None:
+            kb = np.flatnonzero(both)
+            _emit_records(out1, p1k.data, _sel(p1k, kb), f1[kb], t1[kb],
+                          cfg.compat, params.qualtype, outbuf)
+        if k2 is None:
+            if kb is None:
+                kb = np.flatnonzero(both)
+            _emit_records(out2, p2k.data, _sel(p2k, kb), f2[kb], t2[kb],
+                          cfg.compat, params.qualtype, outbuf)
+    single = p1 ^ p2
+    if single.any() and singles_out is not None:
+        # singles come from either source file, in pair order
+        ks = np.flatnonzero(single)
+        take1 = p1[ks]
+        fv = np.where(take1, f1[ks], f2[ks])
+        tv = np.where(take1, t1[ks], t2[ks])
+        if p1k.data is p2k.data:
+            # both mates in one source buffer: single assembly pass
+            s1 = _sel(p1k, ks)
+            s2 = _sel(p2k, ks)
+            fields = {key: np.where(take1, s1[key], s2[key]) for key in s1}
+            _emit_records(singles_out, p1k.data, fields, fv, tv,
+                          cfg.compat, params.qualtype, outbuf)
+        else:
+            # two source buffers (zero-copy mmap producer): compute the
+            # interleaved output offsets once, then one placement pass
+            # per source — never concatenate the buffers
+            nl = np.where(take1, p1k.name_len[ks], p2k.name_len[ks])
+            cl = np.where(take1, p1k.comment_len[ks], p2k.comment_len[ks])
+            sizes = record_out_sizes(nl, cl, fv, tv, cfg.compat)
+            offsets = np.zeros(ks.size, np.int64)
+            if ks.size > 1:
+                np.cumsum(sizes[:-1], out=offsets[1:])
+            total = int(offsets[-1] + sizes[-1])
+            reserve = getattr(singles_out, "reserve", None)
+            if reserve is not None and native.available():
+                # scatter both sources straight into the output mapping
+                buf, start = reserve(total)
+                offsets += start
+            else:
+                buf = (outbuf or OutputBuffer()).ensure(total)
+            for pk, fx, tx, take in (
+                (p1k, f1, t1, take1),
+                (p2k, f2, t2, ~take1),
+            ):
+                sub = np.flatnonzero(take)
+                if sub.size:
+                    rows = ks[sub]
+                    assemble_records_at(
+                        pk.data, **_sel(pk, rows),
+                        five=fx[rows], three=tx[rows],
+                        offsets=offsets[sub], out_buf=buf,
+                        compat=cfg.compat, qualtype=params.qualtype,
+                    )
+            if reserve is not None and native.available():
+                singles_out.commit(total)
+            else:
+                singles_out.write(memoryview(buf)[:total])

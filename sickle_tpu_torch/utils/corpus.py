@@ -10,7 +10,10 @@ cannot reach them (``bad_tail``: the run must finish) or where it always
 does (``bad_head``: the run must fail with the reference's message).
 
 Records are ``@r<9 digits>`` / seq / ``+`` / qual, so the whole file is
-assembled with array scatters, in chunks.
+assembled with array scatters, in chunks.  ``write_pairs`` writes read
+pairs, as two mate files or one interleaved file: the mates of a pair
+share their name, and each mate can have its own length model (2x150,
+150/100, ragged 30-160).
 """
 
 from __future__ import annotations
@@ -106,8 +109,9 @@ def make_reads(
 
 
 def fastq_bytes(seq: np.ndarray, qual: np.ndarray, lengths: np.ndarray,
-                first: int = 0) -> bytes:
-    """FASTQ text of the rows, named ``@r<first + i>`` (9 digits)."""
+                first: int = 0, names: Optional[np.ndarray] = None) -> bytes:
+    """FASTQ text of the rows, named ``@r<first + i>`` (9 digits), or
+    ``@r<names[i]>`` when ``names`` is given."""
     n = lengths.size
     if n == 0:
         return b""
@@ -117,7 +121,8 @@ def fastq_bytes(seq: np.ndarray, qual: np.ndarray, lengths: np.ndarray,
     out = np.empty(int(sizes.sum()), np.uint8)
     out[start] = ord("@")
     out[start + 1] = ord("r")
-    idx = first + np.arange(n, dtype=np.int64)
+    idx = (first + np.arange(n, dtype=np.int64) if names is None
+           else np.asarray(names, np.int64))
     for d in range(_NAME_DIGITS):
         out[start + 2 + d] = 48 + (idx // 10 ** (_NAME_DIGITS - 1 - d)) % 10
     seq_at = start + 3 + _NAME_DIGITS
@@ -145,5 +150,41 @@ def write_fastq(f, seed: int, n: int, chunk: int = 1 << 16, first: int = 0,
         data = fastq_bytes(*make_reads(seed * 1_000_003 + k, m, **kw),
                            first=first + i)
         f.write(data)
+        total += len(data)
+    return total
+
+
+def write_pairs(f1, f2, seed: int, n: int, *, mate1: Optional[dict] = None,
+                mate2: Optional[dict] = None, chunk: int = 1 << 16,
+                first: int = 0, **kw) -> int:
+    """Write ``n`` read pairs: mate 1 to the binary stream ``f1`` and
+    mate 2 to ``f2``, or both interleaved (mate 1, mate 2, ...) to ``f1``
+    when ``f2`` is None.  ``kw`` are ``make_reads`` options for both
+    mates; ``mate1``/``mate2`` override them per mate (e.g.
+    ``length=150`` and ``length=100``).  The mates of pair ``i`` are both
+    named ``@r<first + i>``.  Returns the bytes written."""
+    total = 0
+    for k, i in enumerate(range(0, n, chunk)):
+        m = min(chunk, n - i)
+        base = seed * 1_000_003 + 2 * k
+        s1, q1, l1 = make_reads(base, m, **{**kw, **(mate1 or {})})
+        s2, q2, l2 = make_reads(base + 1, m, **{**kw, **(mate2 or {})})
+        if f2 is not None:
+            b1 = fastq_bytes(s1, q1, l1, first=first + i)
+            b2 = fastq_bytes(s2, q2, l2, first=first + i)
+            f1.write(b1)
+            f2.write(b2)
+            total += len(b1) + len(b2)
+            continue
+        W = max(s1.shape[1], s2.shape[1])
+        seq = np.zeros((2 * m, W), np.uint8)
+        qual = np.zeros((2 * m, W), np.uint8)
+        seq[0::2, : s1.shape[1]], seq[1::2, : s2.shape[1]] = s1, s2
+        qual[0::2, : q1.shape[1]], qual[1::2, : q2.shape[1]] = q1, q2
+        lengths = np.empty(2 * m, np.int32)
+        lengths[0::2], lengths[1::2] = l1, l2
+        data = fastq_bytes(seq, qual, lengths,
+                           names=first + i + np.arange(2 * m) // 2)
+        f1.write(data)
         total += len(data)
     return total

@@ -20,6 +20,10 @@ Stages recorded per chunk:
 * ``dispatch``  — device RPC issue (main thread; H2D + async compute)
 * ``fetch``     — result materialization (main thread; D2H sync point)
 * ``consume``   — quality recheck + assemble + output write (writer thread)
+
+and, per run, how many chunks took each device-batch route (pe: one
+``combined`` mate-1 + mate-2 batch, two ``split`` batches, or one
+``interleaved`` batch).
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ class Metrics:
         self.in_bytes: list = []
         self.h2d_bytes: list = []
         self.out_bytes: list = []
+        self.routes: dict = {}
         self.t_start = time.perf_counter()
 
     # -- stage hooks (each returns a context manager) -----------------
@@ -73,6 +78,10 @@ class Metrics:
     def dispatch(self, h2d_bytes: int) -> StageTimer:
         self.h2d_bytes.append(h2d_bytes)
         return StageTimer(self.dispatch_ms)
+
+    def add_route(self, name: str) -> None:
+        """Count one chunk dispatched by the named route (main thread)."""
+        self.routes[name] = self.routes.get(name, 0) + 1
 
     def fetch(self) -> StageTimer:
         return StageTimer(self.fetch_ms)
@@ -129,6 +138,7 @@ class Metrics:
             "fetch": agg(self.fetch_ms),
             "consume": agg(self.consume_ms),
             "stalled": self.stalled(),
+            "routes": dict(self.routes),
         }
 
     def report(self, stream=None, per_chunk: bool = True) -> None:

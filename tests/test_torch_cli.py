@@ -134,26 +134,21 @@ def test_profile_writes_a_trace(corpus_dir, capsysbinary):
     assert (trace_dir / "trace.json").stat().st_size > 0
 
 
+@pytest.mark.parametrize("cmd", ["se", "pe"])
 @pytest.mark.parametrize("extra, what", [
     (["--dist"], b"--dist"),
     (["--devices", "2"], b"--devices above 1"),
-    (["--checkpoint", "ck.json"], b"--checkpoint"),
     (["--cuts", "hybrid"], b"--cuts hybrid"),
 ])
-def test_unported_options_are_refused(extra, what, corpus_dir, capsysbinary):
+def test_unported_options_are_refused(extra, what, cmd, corpus_dir,
+                                      capsysbinary):
     src = str(corpus_dir / "uniform150.fastq")
     out = str(corpus_dir / "refused.fastq")
+    io_args = (["-f", src, "-o", out] if cmd == "se"
+               else ["-c", src, "-m", out])
     rc, _, err = run(lambda a: torch_cli.main(a, device="cpu"),
-                     ["se", "-f", src, "-t", "sanger", "-o", out] + extra,
-                     capsysbinary)
+                     [cmd, "-t", "sanger"] + io_args + extra, capsysbinary)
     assert rc == 1 and what + b" is not yet ported" in err
-
-
-def test_pe_is_refused(capsysbinary):
-    rc, _, err = run(lambda a: torch_cli.main(a, device="cpu"),
-                     ["pe", "-c", "x.fastq", "-t", "sanger", "-m", "o.fastq"],
-                     capsysbinary)
-    assert rc == 1 and b"pe is not yet ported" in err
 
 
 @pytest.mark.parametrize("argv", [

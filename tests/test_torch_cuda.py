@@ -13,11 +13,13 @@ import pytest
 import torch
 
 from sickle_tpu_torch.constants import Compat, QualityType
-from sickle_tpu_torch.engine.pipeline import _cuda_cuts_fn, run_se
+from sickle_tpu_torch.engine import EngineConfig
+from sickle_tpu_torch.engine.pipeline import _cuda_cuts_fn, run_pe, run_se
 from sickle_tpu_torch.ops import trim_cuda
 from sickle_tpu_torch.ops.trim import MAX_PACKED_L, TrimParams, trim_codes
 from sickle_tpu_torch.ops.trim_host import host_cuts_fn
-from sickle_tpu_torch.utils.corpus import fastq_bytes, make_reads
+from sickle_tpu_torch.utils.corpus import fastq_bytes, make_reads, write_pairs
+from sickle_tpu_torch.utils.metrics import Metrics
 
 pytestmark = pytest.mark.cuda
 
@@ -110,6 +112,38 @@ def test_run_se_matches_host_kernel(dev):
         out = io.BytesIO()
         c = run_se(io.BytesIO(data), out, p, cuts_fn=fn)
         outs.append((out.getvalue(), c))
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("trunc_n", [False, True])
+def test_run_pe_routes_match_host_kernel(trunc_n, dev, tmp_path):
+    """Two-file pe from regular files, mate 2 growing for the first
+    chunks: the split route, then combined batches; interleaved -M on
+    the same pairs.  Device outputs equal the host kernel's."""
+    p = TrimParams(S, 20, trunc_n=trunc_n)
+    f1, f2 = open(tmp_path / "1.fq", "wb"), open(tmp_path / "2.fq", "wb")
+    fi = open(tmp_path / "i.fq", "wb")
+    with f1, f2, fi:
+        for k in range(6):
+            kw = dict(first=k * 4096, mate1=dict(length=(30, 60)),
+                      mate2=dict(length=(40, 70 + 24 * min(k, 3))),
+                      n_rate=0.01, bad_tail=0.01)
+            write_pairs(f1, f2, 70 + k, 4096, **kw)
+            write_pairs(fi, None, 70 + k, 4096, **kw)
+    outs = []
+    for fn in (_cuda_cuts_fn(p, dev), host_cuts_fn(p)):
+        mtr = Metrics()
+        o = [io.BytesIO() for _ in range(4)]
+        with open(tmp_path / "1.fq", "rb") as a, open(tmp_path / "2.fq", "rb") as b:
+            c = run_pe(a, b, out1=o[0], out2=o[1], singles_out=o[2], params=p,
+                       cfg=EngineConfig(records_per_chunk=4096, metrics=mtr),
+                       cuts_fn=fn)
+        with open(tmp_path / "i.fq", "rb") as a:
+            ci = run_pe(a, None, interleaved=True, out1=o[3],
+                        n_record_mode=True, params=p, cuts_fn=fn,
+                        cfg=EngineConfig(records_per_chunk=4096))
+        assert mtr.routes["split"] >= 3 and mtr.routes["combined"] >= 2
+        outs.append(([x.getvalue() for x in o], c, ci))
     assert outs[0] == outs[1]
 
 

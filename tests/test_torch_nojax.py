@@ -23,29 +23,58 @@ def _python(code_or_args, cwd, **kw):
 
 @pytest.fixture(scope="module")
 def small_fastq(tmp_path_factory):
-    from sickle_tpu_torch.utils.corpus import write_fastq
+    from sickle_tpu_torch.utils.corpus import write_fastq, write_pairs
 
     d = tmp_path_factory.mktemp("nojax")
     with open(d / "in.fastq", "wb") as f:
         write_fastq(f, 5, 800, length=(30, 160), n_rate=0.01, bad_tail=0.02)
+    with open(d / "in.1.fastq", "wb") as f1, open(d / "in.2.fastq", "wb") as f2:
+        write_pairs(f1, f2, 6, 400, length=(30, 160), bad_tail=0.02)
     return d
+
+
+def _run_without_jax(argvs, cuts, cwd):
+    """Run the port's CLI on each argv in one fresh interpreter; assert
+    each run succeeded and wrote its first output, and that neither JAX
+    nor the JAX package was loaded."""
+    code = f"""
+import sys
+from sickle_tpu_torch.cli import main
+rcs = [main(argv + ["-t", "sanger", "--cuts", "{cuts}", "--quiet"],
+            device="cpu") for argv in {argvs!r}]
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "sickle_tpu"))
+print(max(rcs), loaded)
+"""
+    r = _python(code, cwd)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "0 []"
+    for argv in argvs:
+        out = argv[[i for i, a in enumerate(argv) if a in ("-o", "-M")][0] + 1]
+        assert (cwd / out).stat().st_size > 0
 
 
 @pytest.mark.parametrize("cuts", ["device", "host"])
 def test_se_runs_without_jax(cuts, small_fastq):
-    code = f"""
-import sys
-from sickle_tpu_torch.cli import main
-rc = main(["se", "-f", "in.fastq", "-t", "sanger", "-o", "out.{cuts}.fastq",
-           "--cuts", "{cuts}", "--quiet"], device="cpu")
-loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "sickle_tpu"))
-print(rc, loaded)
-"""
-    r = _python(code, small_fastq)
-    assert r.returncode == 0, r.stderr
-    assert r.stdout.strip() == "0 []"
-    assert (small_fastq / f"out.{cuts}.fastq").stat().st_size > 0
+    _run_without_jax([["se", "-f", "in.fastq", "-o", f"out.{cuts}.fastq"]],
+                     cuts, small_fastq)
+
+
+@pytest.mark.parametrize("cuts", ["device", "host"])
+def test_pe_and_checkpoint_run_without_jax(cuts, small_fastq):
+    """Two-file pe, interleaved -M, se with --checkpoint and -g, and
+    two-file pe with --checkpoint."""
+    pe = ["pe", "-f", "in.1.fastq", "-r", "in.2.fastq"]
+    _run_without_jax([
+        pe + ["-o", f"pe.{cuts}.1.fastq", "-p", f"pe.{cuts}.2.fastq",
+              "-s", f"pe.{cuts}.s.fastq"],
+        ["pe", "-c", "in.fastq", "-M", f"pe_M.{cuts}.fastq"],
+        ["se", "-f", "in.fastq", "-o", f"se_ck.{cuts}.fastq.gz", "-g",
+         "--checkpoint", f"se_ck.{cuts}.json"],
+        pe + ["-o", f"pe_ck.{cuts}.1.fastq", "-p", f"pe_ck.{cuts}.2.fastq",
+              "-s", f"pe_ck.{cuts}.s.fastq", "--checkpoint",
+              f"pe_ck.{cuts}.json"],
+    ], cuts, small_fastq)
 
 
 def test_module_entry_point_host(small_fastq):
@@ -72,13 +101,21 @@ print(len(names), sorted(m for m in sys.modules
     assert int(count) >= 15 and loaded == "[]"
 
 
+def _needs_cuda(argv, cwd):
+    r = _python("import torch; print(torch.cuda.is_available())", cwd)
+    if r.stdout.strip() != "False":
+        pytest.skip("a CUDA device is present")
+    r = _python(["-m", "sickle_tpu_torch", *argv, "-t", "sanger"], cwd)
+    assert r.returncode == 1
+    assert "no CUDA device is available" in r.stderr
+
+
 def test_default_device_needs_cuda(small_fastq):
     """``--cuts auto`` means the CUDA kernel: without a card the CLI says so
     and exits 1 instead of falling back."""
-    r = _python("import torch; print(torch.cuda.is_available())", small_fastq)
-    if r.stdout.strip() != "False":
-        pytest.skip("a CUDA device is present")
-    r = _python(["-m", "sickle_tpu_torch", "se", "-f", "in.fastq", "-t",
-                 "sanger", "-o", "out.auto.fastq"], small_fastq)
-    assert r.returncode == 1
-    assert "no CUDA device is available" in r.stderr
+    _needs_cuda(["se", "-f", "in.fastq", "-o", "out.auto.fastq"], small_fastq)
+
+
+def test_pe_default_device_needs_cuda(small_fastq):
+    """The same for pe: no CPU fallback."""
+    _needs_cuda(["pe", "-c", "in.fastq", "-m", "out.auto.fastq"], small_fastq)
