@@ -7,31 +7,46 @@ Phases (any failure raises, so the exit code is non-zero):
 
 1. Device: the card's name and power limit, and the cuts kernel built
    from ``sickle_tpu_torch/csrc/trim_cuts.cu`` with nvcc.
-2. Kernel vs plain: the CUDA kernel against its plain PyTorch version on
+2. Kernel vs plain: the CUDA kernel against its plain PyTorch versions on
    the same tensors on the card, exact equality (tolerance 0: integer
-   outputs) of five, three, the bad-quality flag and the packed codes,
-   over the nine trim configurations of the JAX package's kernel tests,
-   three encodings, uniform 150 bp and ragged 30-160 bp batches of
+   outputs).  Raw rows: five, three, the bad-quality flag and the packed
+   codes over the nine trim configurations of the JAX package's kernel
+   tests, three encodings, uniform 150 bp and ragged 30-160 bp batches of
    65,536 rows, out-of-range chars before and past the 3' cut, and 50 kbp
-   rows (L >= 32766: the unpacked result).  Then the time per
-   65,536 x 152 batch of both (CUDA events, median of repeats).
-3. End to end: a seeded FASTQ of 2,000,000 uniform 150 bp reads plus
-   250,000 ragged 30-160 bp reads is trimmed by the CLI entry point
-   (``sickle_tpu_torch.cli.main``, what ``python -m sickle_tpu_torch se``
-   runs) with the CUDA kernel and again with ``--cuts host``, in turns,
-   all with ``--metrics``; the outputs must be byte-identical with equal
-   summaries, the kernel must have been launched, and the first 2,000
-   records of a device run must match the scalar oracle.  Each run's
-   wall and stage totals are printed, then the device time by kind (H2D,
-   kernel, D2H) from one more device run under ``--profile``.
+   rows (L >= 32766: the unpacked result).  The wires: the ``BAND`` and
+   ``RANK`` prologue forms against ``wire_codes`` and against the raw-row
+   kernel on the same chars, every config with -n off, three encodings,
+   uniform and ragged 65,536-row batches, and every wire width (band
+   p = 1-6, rank p = 1-3).  Then the time per 65,536 x 152 batch of each
+   form and its plain version (CUDA events, median of repeats).
+3. se end to end through the CLI entry point (``sickle_tpu_torch.cli.
+   main``, what ``python -m sickle_tpu_torch se`` runs), all with
+   ``--metrics``, launch counts set to 0 before each run:
+   - a seeded FASTQ of 2,000,000 uniform 150 bp reads (in range: the
+     band wire) plus 250,000 ragged 30-160 bp reads with out-of-range
+     chars past the 3' cut (raw rows), in turns ``--cuts host`` (the
+     indexed host kernel), ``--cuts device``, ``auto`` (the hybrid
+     router) and ``--cuts device`` with ``SICKLE_TPU_NO_PLANES=1`` (raw
+     rows); every output byte-identical with equal summaries, the first
+     2,000 records equal to the scalar oracle; each run's H2D B/read,
+     launches per form, stage totals and router counters printed; an
+     auto run must send chunks to the card with no rescue;
+   - a ``--cuts device`` and an ``auto`` run under ``--profile``: device
+     time by kind (H2D, kernel, D2H) from the trace;
+   - a rescue check: the router over a device step that sleeps 1 s per
+     chunk, ``rescue_s`` 0.1: identical output, rescues counted, workers
+     stopped by ``close()``;
+   - 1,000,000 NovaSeq-binned 150 bp reads (the rank wire): host, device
+     and auto identical.
 4. pe end to end, through the same entry point (``sickle pe``):
    - two-file, 1,000,000 pairs of 2x150 bp (Sanger, ``-q 20``): the
      combined ``[2n, L]`` mate batch in the kernel's uniform form; runs
-     in turns host, device, device, host, all with ``--metrics``; every
-     ``-o/-p/-s`` output byte-identical with equal summaries, the first
-     2,000 pairs of a device run equal to the scalar oracle;
-   - interleaved ``-M``, 250,000 pairs of ragged 30-160 bp: one
-     interleaved batch per chunk in the generic form; device == host;
+     in turns host, device, auto, device, host; every ``-o/-p/-s`` output
+     byte-identical with equal summaries, the first 2,000 pairs of a
+     device run equal to the scalar oracle;
+   - interleaved ``-M``, 250,000 pairs of ragged 30-160 bp in range: one
+     interleaved batch per chunk on the band wire, generic form; device
+     == host;
    - two-file, mate-2 reads growing longer chunk by chunk, so every
      chunk overflows the shared row stride and ships as two batches (the
      split route); device == host;
@@ -39,8 +54,10 @@ Phases (any failure raises, so the exit code is non-zero):
      device run's, and the sidecar records every input record as done.
    Each device run must launch the kernel, on the route it names.
 
-The last two lines of standard output are one JSON object per kernel
-(``{"kernels": [...]}``) and the run's verdict (``{"ok": true, ...}``).
+The last two lines of standard output are the kernels' JSON object
+(``{"kernels": [...]}``: the raw, band and rank forms of the one kernel,
+each with the launches of the main-path runs) and the run's verdict
+(``{"ok": true, ...}``).
 No CPU fallback: without a CUDA device the script exits 1 and prints no
 result.
 """
@@ -65,6 +82,7 @@ N_UNIFORM = 2_000_000  # uniform 150 bp reads in the end-to-end input
 N_RAGGED = 250_000  # ragged 30-160 bp reads after them
 N_PE_PAIRS = 1_000_000  # 2x150 bp pairs, two-file pe
 N_PE_RAGGED = 250_000  # ragged 30-160 bp pairs, interleaved -M
+N_BINNED = 1_000_000  # NovaSeq-binned 150 bp reads (the rank wire)
 PE_SPLIT_CHUNKS, PE_CHUNK = 6, 1 << 16  # split-route input: 6 chunks
 
 
@@ -211,7 +229,110 @@ def phase_kernels(torch, trim_cuda, dev, B=65536):
     print(f"time per 65,536 x 152 batch: kernel {times['kernel_uniform']:.4f} ms "
           f"(uniform form), {times['kernel_generic']:.4f} ms (generic form); "
           f"plain PyTorch {times['plain']:.4f} ms", flush=True)
-    return max_err, times
+    errs = {"raw": max_err}
+    errs.update(_phase_wire(torch, trim_cuda, dev, B, times))
+    return errs, times
+
+
+def _wire_args(np, qual, rank, qualtype, p=None):
+    """(wire rows, p, kernel args) of a qual matrix: the rank wire over
+    its distinct chars, or the band wire above its smallest char minus 1
+    (io/fastq.qual_fields), as the device step's plan builds them."""
+    from sickle_tpu_torch.constants import QUALITY_CONSTANTS
+    from sickle_tpu_torch.io.fastq import (
+        qual_fields, qual_levels, qual_rank_fields)
+
+    offset = QUALITY_CONSTANTS[qualtype][0]
+    levels = qual_levels(qual)
+    if rank:
+        p = p or levels.size.bit_length()
+        lut = np.zeros(1 << p, np.int32)
+        lut[1:1 + levels.size] = levels.astype(np.int32) - offset
+        return qual_rank_fields(qual, levels, p), p, dict(lut=lut)
+    bias = int(levels[0]) - 1
+    p = p or (int(levels[-1]) - bias).bit_length()
+    return qual_fields(qual, bias, p), p, dict(bias=bias - offset)
+
+
+def _phase_wire(torch, trim_cuda, dev, B, times):
+    """The BAND and RANK prologue forms against their plain version
+    (ops/trim.py::wire_codes) and against the raw-row kernel on the same
+    chars, on every trim config with -n off; then their time per batch."""
+    import dataclasses
+
+    import numpy as np
+
+    from sickle_tpu_torch.constants import Compat, QualityType
+    from sickle_tpu_torch.ops.trim import TrimParams, wire_codes
+    from sickle_tpu_torch.utils.corpus import make_reads, wire_quals
+
+    L = 152
+    errs = {"band": 0, "rank": 0}
+    n_cases = 0
+    batches = {}
+    for p in _configs(TrimParams, Compat, QualityType):
+        p = dataclasses.replace(p, trunc_n=False)
+        for form in ("band", "rank"):
+            for kind in ("uniform", "ragged"):
+                key = (form, kind, p.qualtype)
+                if key not in batches:
+                    seed = 500 + 7 * int(p.qualtype) + (50 if kind == "ragged" else 0)
+                    _, q, _ = make_reads(
+                        seed, B, qualtype=p.qualtype, binned=form == "rank",
+                        length=150 if kind == "uniform" else (30, 152),
+                        width=L)
+                    q[-1000:] = 0  # padding rows
+                    buf, pw, kw = _wire_args(np, q, form == "rank", p.qualtype)
+                    batches[key] = (torch.from_numpy(buf).to(dev),
+                                    torch.from_numpy(q).to(dev), pw, kw,
+                                    150 if kind == "uniform" else None)
+                buf, q, pw, kw, ul = batches[key]
+                for u in ((None, ul) if ul else (None,)):
+                    want = wire_codes(buf, pw, L, p, uniform_len=u, **kw)
+                    got = trim_cuda.trim_cuts_wire(buf, pw, L, p,
+                                                   uniform_len=u, **kw)
+                    raw = trim_cuda.trim_cuts(q, p, uniform_len=u)
+                    err = max(int((got - want).abs().max()),
+                              int((raw - want).abs().max()))
+                    errs[form] = max(errs[form], err)
+                    check(err == 0, f"{form} kernel != plain: {kind} {p} "
+                          f"uniform={u}")
+                    n_cases += 1
+    # every wire width once, on the default config
+    p = TrimParams()
+    for form, widths in (("band", range(1, 7)), ("rank", range(1, 4))):
+        for pw in widths:
+            for ul in (None, 150):
+                q = wire_quals(900 + pw, 8192, L, pw, rank=form == "rank",
+                               uniform=ul)
+                buf, _, kw = _wire_args(np, q, form == "rank", p.qualtype, pw)
+                buf = torch.from_numpy(buf).to(dev)
+                want = wire_codes(buf, pw, L, p, uniform_len=ul, **kw)
+                got = trim_cuda.trim_cuts_wire(buf, pw, L, p, uniform_len=ul,
+                                               **kw)
+                err = int((got - want).abs().max())
+                errs[form] = max(errs[form], err)
+                check(err == 0, f"{form} kernel != plain at p={pw} uniform={ul}")
+                n_cases += 1
+    torch.cuda.synchronize()
+    print(f"wire kernels vs plain: {n_cases} cases equal (tolerance 0, max "
+          f"abs err band {errs['band']}, rank {errs['rank']}); launches "
+          f"{dict(trim_cuda.LAUNCHES_BY_FORM)}", flush=True)
+
+    # time per 65,536 x 152 batch on the main-path shapes: uniform 150 bp
+    # Sanger quals 0-41 on the 6-bit band wire, NovaSeq-binned on the
+    # 3-bit rank wire
+    for form in ("band", "rank"):
+        buf, _, pw, kw, ul = batches[(form, "uniform", QualityType.SANGER)]
+        bufs = [buf.clone() for _ in range(8)]
+        times[form] = _time_ms(torch, lambda b: trim_cuda.trim_cuts_wire(
+            b, pw, L, p, uniform_len=ul, **kw), bufs)
+        times[form + "_plain"] = _time_ms(torch, lambda b: wire_codes(
+            b, pw, L, p, uniform_len=ul, **kw), bufs)
+        print(f"time per 65,536 x 152 batch, {form} wire (p={pw}, "
+              f"{buf.shape[1]} B/row): kernel {times[form]:.4f} ms; plain "
+              f"PyTorch {times[form + '_plain']:.4f} ms", flush=True)
+    return errs
 
 
 def _unpack(codes):
@@ -250,124 +371,259 @@ def _run_cli(cli, argv, device):
     return rc, out.buffer.getvalue().decode(), err.buffer.getvalue().decode(), wall
 
 
-def phase_e2e(trim_cuda, card, device, workdir):
-    from sickle_tpu_torch import cli, oracle
-    from sickle_tpu_torch.constants import QualityType
-    from sickle_tpu_torch.utils.corpus import write_fastq
+# --cuts modes of the e2e turns: (CLI flags, environment)
+MODES = {
+    "host": (["--cuts", "host"], {}),
+    "device": (["--cuts", "device"], {}),
+    "auto": ([], {}),
+    "raw": (["--cuts", "device"], {"SICKLE_TPU_NO_PLANES": "1"}),
+}
 
-    src = os.path.join(workdir, "reads.fastq")
-    t0 = time.perf_counter()
-    with open(src, "wb") as f:
-        size = write_fastq(f, 2024, N_UNIFORM, length=150, bad_tail=0.001)
-        size += write_fastq(f, 2025, N_RAGGED, first=N_UNIFORM,
-                            length=(30, 160), bad_tail=0.001)
-    n = N_UNIFORM + N_RAGGED
-    print(f"e2e input: {n} reads, {size} bytes, written in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    # in turns (host, device, device, host) so neither mode gets the warm
-    # page cache alone, all with the same flags; every output must equal
-    # the first, and the first device run's output is held to the oracle
-    base = ["se", "-f", src, "-t", "sanger", "-q", "20", "--metrics"]
-    runs = {"host": [], "device": []}
+def _run_mode(trim_cuda, cli, argv, mode, device):
+    """One CLI run in ``mode`` with --metrics, launch counts set to 0 just
+    before it; returns (rc, stdout, stderr, wall, metrics, launches)."""
+    flags, env = MODES[mode]
+    os.environ.update(env)
+    trim_cuda.reset_counts()
+    try:
+        rc, so, se, wall = _run_cli(cli, argv + ["--metrics"] + flags, device)
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+    launches = dict(trim_cuda.LAUNCHES_BY_FORM)
+    check(rc == 0, f"{mode} run exited {rc}: {se[-2000:]}")
+    met = _metrics(se)
+    if mode != "host":
+        check(sum(launches.values()) > 0,
+              f"the {mode} run never launched the cuts kernel")
+    if mode in ("device", "raw"):
+        check("hybrid" not in met, f"--cuts device ran the router: {met}")
+    if mode == "raw":
+        check(launches["band"] == launches["rank"] == 0,
+              f"SICKLE_TPU_NO_PLANES run shipped a wire: {launches}")
+    if mode == "host":
+        hy = met.get("hybrid") or {}
+        check(hy.get("chunks_device") == 0 and met["h2d_bytes"] == 0
+              and sum(launches.values()) == 0,
+              f"--cuts host touched the card: {met}, {launches}")
+    if mode == "auto":
+        hy = met["hybrid"]
+        check(hy["chunks_device"] >= 1 and hy["chunks_rescued"] == 0,
+              f"auto run: {hy} (no device chunk, or a rescue on a healthy "
+              f"card)")
+    return rc, so, se, wall, met, launches
+
+
+def _hybrid_line(met):
+    hy = met.get("hybrid")
+    if not hy:
+        return ""
+    ewma = {k: (round(v, 3) if v is not None else None)
+            for k, v in hy.items() if k.startswith("ewma")}
+    return (f"; router: device {hy['chunks_device']}, host "
+            f"{hy['chunks_host']}, rescued {hy['chunks_rescued']}, drained "
+            f"{hy['chunks_drained']}, probes {hy['chunks_probe']}, EWMA ms "
+            f"{ewma}")
+
+
+def _se_turns(trim_cuda, cli, device, src, workdir, n, modes, tag):
+    """``sickle se`` on ``src`` once per mode, every output and summary
+    equal to the first run's; returns ({mode: [(wall, metrics,
+    launches)]}, first output path, summary)."""
+    base = ["se", "-f", src, "-t", "sanger", "-q", "20"]
+    runs = {m: [] for m in modes}
     first = None
-    dev_out = None
-    launches = None
-    for k, mode in enumerate(("host", "device", "device", "host")):
-        out = os.path.join(workdir, f"out{k}.fastq")
-        argv = base + ["-o", out] + (["--cuts", "host"] if mode == "host"
-                                     else [])
-        trim_cuda.LAUNCHES = 0
-        rc, so, se, wall = _run_cli(cli, argv, device)
-        check(rc == 0, f"{mode} run exited {rc}: {se[-2000:]}")
-        if mode == "device":
-            launches = trim_cuda.LAUNCHES
-            check(launches > 0, "the main path never launched the cuts kernel")
-        runs[mode].append((wall, _metrics(se)))
+    for k, mode in enumerate(modes):
+        out = os.path.join(workdir, f"{tag}{k}.fastq")
+        rc, so, se, wall, met, launches = _run_mode(
+            trim_cuda, cli, base + ["-o", out], mode, device)
+        runs[mode].append((wall, met, launches))
+        print(f"{tag} run {k}, {mode}: {wall:.3f} s wall, {n / wall:.0f} "
+              f"reads/s; H2D {met['h2d_bytes'] / n:.1f} B/read; launches "
+              f"{launches}; {_stage_line(met)}{_hybrid_line(met)}",
+              flush=True)
         if first is None:
             first = (out, so)
             check(f"Total FastQ records: {n}\n" in so, f"bad summary:\n{so}")
             continue
         check(so == first[1], f"summaries differ:\n{so}\n{first[1]}")
         check(_same_file(out, first[0]),
-              f"{mode} output differs from the first run's")
-        if mode == "device" and dev_out is None:
-            dev_out = out
-        else:
-            os.unlink(out)
+              f"{tag} {mode} output differs from the first run's")
+        os.unlink(out)
+    return runs, first[0], first[1]
 
-    # the first 2,000 records of a device run against the scalar oracle
+
+def phase_e2e(trim_cuda, card, device, workdir):
+    from sickle_tpu_torch import cli, oracle
+    from sickle_tpu_torch.constants import QualityType
+    from sickle_tpu_torch.utils.corpus import write_fastq
+
+    launches = {"raw": 0, "band": 0, "rank": 0}
+
+    def add(runs):
+        for mode, rs in runs.items():
+            if mode != "host":
+                for _, _, la in rs:
+                    for k, v in la.items():
+                        launches[k] += v
+
+    src = os.path.join(workdir, "reads.fastq")
+    t0 = time.perf_counter()
+    with open(src, "wb") as f:
+        # the uniform part is in range (it rides the band wire); the
+        # ragged part carries out-of-range chars past the 3' cut (raw rows
+        # and the device's bad-quality flag)
+        size = write_fastq(f, 2024, N_UNIFORM, length=150)
+        size += write_fastq(f, 2025, N_RAGGED, first=N_UNIFORM,
+                            length=(30, 160), bad_tail=0.001)
+    n = N_UNIFORM + N_RAGGED
+    print(f"e2e input: {n} reads, {size} bytes, written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # in turns, so no mode gets the warm page cache alone, all with the
+    # same flags; every output must equal the first (host) run's
+    modes = ("host", "device", "auto", "raw", "raw", "auto", "device", "host")
+    runs, first_out, so = _se_turns(trim_cuda, cli, device, src, workdir, n,
+                                    modes, "se")
+    add(runs)
+    for _, met, la in runs["device"] + runs["auto"]:
+        check(la["band"] > 0, f"no band-wire launch in a device run: {la}")
+    h2d = {m: runs[m][0][1]["h2d_bytes"] / n for m in ("device", "raw")}
+    check(110 <= h2d["device"] <= 125,
+          f"device run shipped {h2d['device']:.1f} B/read, not the wire's")
+
+    # the first 2,000 records against the scalar oracle
     with open(src, "rb") as f:
         head = b"".join(f.readline() for _ in range(4 * 2000))
     want, counts = oracle.trim_se(head, qualtype=QualityType.SANGER,
                                   qual_threshold=20, length_threshold=20)
-    with open(dev_out, "rb") as f:
+    with open(first_out, "rb") as f:
         got = f.read(len(want))
     check(got == want, "first 2,000 records disagree with the oracle")
-    print(f"oracle: first 2000 records of the device run agree "
+    print(f"oracle: first 2000 records of the outputs agree "
           f"({counts.kept} kept, {counts.discarded} discarded)", flush=True)
     print("e2e summary: " + " | ".join(
         ln for ln in so.splitlines() if ln.startswith(("Total", "FastQ"))),
         flush=True)
-    for mode in ("device", "host"):
-        for wall, met in runs[mode]:
-            print(f"e2e run, {mode}: {wall:.3f} s wall, {n / wall:.0f} "
-                  f"reads/s; {met['chunks']} chunks; stage totals ms: pack "
-                  f"{met['pack']['total_ms']}, "
-                  f"dispatch {met['dispatch']['total_ms']} (max "
-                  f"{met['dispatch']['max_ms']}), fetch "
-                  f"{met['fetch']['total_ms']}, consume "
-                  f"{met['consume']['total_ms']}", flush=True)
-    best_d = min(w for w, _ in runs["device"])
-    best_h = min(w for w, _ in runs["host"])
-    h2d = runs["device"][0][1]["h2d_bytes"]
-    print(f"e2e on {card}: device {n / best_d:.0f} reads/s (best of "
-          f"{len(runs['device'])}: {best_d:.3f} s; {launches} kernel launches, "
-          f"H2D {h2d / n:.1f} B/read); --cuts host {n / best_h:.0f} reads/s "
-          f"({best_h:.3f} s); all outputs identical", flush=True)
+    best = {m: min(w for w, _, _ in runs[m]) for m in runs}
+    print(f"e2e on {card}: " + "; ".join(
+        f"{m} {n / best[m]:.0f} reads/s (best of {len(runs[m])}: "
+        f"{best[m]:.3f} s)" for m in ("device", "auto", "raw", "host"))
+        + f"; H2D device {h2d['device']:.1f} B/read, raw "
+        f"{h2d['raw']:.1f} B/read; all outputs identical", flush=True)
 
-    # one more device run under --profile: where the card's time goes
-    trace_dir = os.path.join(workdir, "trace")
-    out = os.path.join(workdir, "out_prof.fastq")
-    rc, _, se, wall = _run_cli(
-        cli, base + ["-o", out, "--profile", trace_dir], device)
-    check(rc == 0, f"profiled run exited {rc}: {se[-2000:]}")
-    check(_same_file(out, first[0]), "profiled output differs")
-    print(f"e2e profiled device run ({wall:.3f} s wall): "
-          f"{_device_busy(os.path.join(trace_dir, 'trace.json'))}",
-          flush=True)
+    # device, auto and raw-row runs under --profile: where the card's
+    # time goes, and that the profiler sees launches from the router's
+    # worker
+    for mode in ("device", "auto", "raw"):
+        trace_dir = os.path.join(workdir, f"trace_{mode}")
+        out = os.path.join(workdir, f"out_prof_{mode}.fastq")
+        base = ["se", "-f", src, "-t", "sanger", "-q", "20"]
+        rc, _, se, wall, met, la = _run_mode(
+            trim_cuda, cli, base + ["-o", out, "--profile", trace_dir], mode,
+            device)
+        add({mode: [(wall, met, la)]})
+        check(_same_file(out, first_out), f"profiled {mode} output differs")
+        os.unlink(out)
+        busy = _device_busy(os.path.join(trace_dir, "trace.json"))
+        check(" kernel " in busy, f"the {mode} trace holds no kernel: {busy}")
+        print(f"e2e profiled {mode} run ({wall:.3f} s wall): {busy}",
+              flush=True)
+
+    # a stalled device: every device chunk sleeps 1 s, rescue_s 0.1 s; the
+    # host recomputes the stalled chunks and the output stays identical
+    _rescue_check(trim_cuda, device, src, first_out, n)
+    os.unlink(first_out)
+
+    # binned NovaSeq-style quals: the rank wire
+    bsrc = os.path.join(workdir, "binned.fastq")
+    with open(bsrc, "wb") as f:
+        write_fastq(f, 2026, N_BINNED, length=150, binned=True)
+    runs, bout, _ = _se_turns(trim_cuda, cli, device, bsrc, workdir,
+                              N_BINNED, ("host", "device", "auto"), "binned")
+    add(runs)
+    _, met, la = runs["device"][0]
+    b_h2d = met["h2d_bytes"] / N_BINNED
+    check(la["rank"] > 0, f"no rank-wire launch on the binned input: {la}")
+    check(55 <= b_h2d <= 62, f"binned device run shipped {b_h2d:.1f} B/read")
+    print(f"binned e2e on {card}: device {N_BINNED / runs['device'][0][0]:.0f}"
+          f", auto {N_BINNED / runs['auto'][0][0]:.0f}, host "
+          f"{N_BINNED / runs['host'][0][0]:.0f} reads/s; H2D {b_h2d:.1f} "
+          f"B/read; outputs identical", flush=True)
+    for path in (src, bsrc, bout):
+        os.unlink(path)
     return launches
+
+
+def _rescue_check(trim_cuda, device, src, want_out, n):
+    """run_se through the router over a device step that sleeps 1 s before
+    every chunk, with rescue_s 0.1: output identical, rescues counted,
+    and close() stops the workers."""
+    from sickle_tpu_torch.engine import run_se
+    from sickle_tpu_torch.engine.hybrid import HybridCutsFn
+    from sickle_tpu_torch.engine.pipeline import _cuda_cuts_fn
+    from sickle_tpu_torch.ops.trim import TrimParams
+
+    p = TrimParams(qual_threshold=20)
+    dev = _cuda_cuts_fn(p, device)
+
+    def stalled(seq, qual, lengths, qual_clean=False, wire=None):
+        time.sleep(1.0)
+        return dev(seq, qual, lengths, qual_clean=qual_clean, wire=wire)
+
+    stalled.prepare = dev.prepare
+    stalled.device = dev.device
+    stalled.lazy = True
+    fn = HybridCutsFn(p, stalled, rescue_s=0.1)
+    out = os.path.join(os.path.dirname(want_out), "rescued.fastq")
+    t0 = time.perf_counter()
+    try:
+        with open(src, "rb") as fin, open(out, "wb") as fout:
+            c = run_se(fin, fout, p, cuts_fn=fn)
+    finally:
+        closed = fn.close()
+    wall = time.perf_counter() - t0
+    check(closed, "close() left a router worker running")
+    check(c.total == n and _same_file(out, want_out),
+          "the rescued run's output differs")
+    check(fn.n_rescued >= 1, f"no rescue: {fn.n_rescued}")
+    os.unlink(out)
+    print(f"rescue check: device stalled 1 s per chunk, rescue_s 0.1: "
+          f"{wall:.3f} s wall; device {fn.n_device}, host {fn.n_host}, "
+          f"rescued {fn.n_rescued}, drained {fn.n_drained}; output "
+          f"identical, workers stopped", flush=True)
 
 
 def _stage_line(met: dict) -> str:
     return (f"{met['chunks']} chunks; stage totals ms: pack "
-            f"{met['pack']['total_ms']}, dispatch {met['dispatch']['total_ms']} "
+            f"{met['pack']['total_ms']}, wire prep {met['prep']['total_ms']}, "
+            f"dispatch {met['dispatch']['total_ms']} "
             f"(max {met['dispatch']['max_ms']}), fetch "
             f"{met['fetch']['total_ms']}, consume {met['consume']['total_ms']}")
 
 
-def _pe_turns(trim_cuda, cli, device, argv_for, modes, n_pairs, route):
+def _pe_turns(trim_cuda, cli, device, argv_for, modes, n_pairs, route,
+              launches):
     """Run ``sickle pe`` once per mode in ``modes`` (all with --metrics);
     every run's outputs and summary must equal the first run's; outputs
-    of the third run on are deleted once compared.  Returns
-    ([(mode, wall, metrics, launches)], first run's output paths,
-    summary)."""
-    runs, first, launches_total = [], None, 0
+    of the third run on are deleted once compared.  A device run must
+    take ``route`` only; an auto run ``route`` or ``indexed`` (chunks the
+    router sent to the host kernel unpacked).  Kernel launches of the
+    runs are added to ``launches``.  Returns ([(mode, wall, metrics,
+    launches)], first run's output paths, summary)."""
+    runs, first = [], None
     for k, mode in enumerate(modes):
         argv, outs = argv_for(k)
-        argv = argv + ["--metrics"] + (["--cuts", "host"] if mode == "host"
-                                       else [])
-        trim_cuda.LAUNCHES = 0
-        rc, so, se, wall = _run_cli(cli, argv, device)
-        launches = trim_cuda.LAUNCHES
-        check(rc == 0, f"pe {mode} run exited {rc}: {se[-2000:]}")
-        met = _metrics(se)
-        if mode == "device":
-            check(launches > 0, "the pe path never launched the cuts kernel")
-            check(set(met["routes"]) == {route},
-                  f"pe device run took routes {met['routes']}, not {route}")
-            launches_total += launches
-        runs.append((mode, wall, met, launches))
+        rc, so, se, wall, met, la = _run_mode(trim_cuda, cli, argv, mode,
+                                              device)
+        if mode != "host":
+            allowed = {route} | ({"indexed"} if mode == "auto" else set())
+            check(set(met["routes"]) <= allowed and met["routes"],
+                  f"pe {mode} run took routes {met['routes']}, not {route}")
+            for f, v in la.items():
+                launches[f] += v
+        runs.append((mode, wall, met, la))
         if first is None:
             first = (outs, so)
             check(f"({n_pairs} pairs)" in so, f"bad pe summary:\n{so}")
@@ -377,16 +633,16 @@ def _pe_turns(trim_cuda, cli, device, argv_for, modes, n_pairs, route):
             check(_same_file(a, b), f"pe {mode} output {a} differs from {b}")
             if k > 1:  # runs 0 and 1 are kept for the caller
                 os.unlink(a)
-    return runs, first[0], first[1], launches_total
+    return runs, first[0], first[1]
 
 
 def _print_pe_runs(title, runs, n_pairs):
-    for mode, wall, met, launches in runs:
+    for mode, wall, met, la in runs:
         h2d = (f"H2D {met['h2d_bytes'] / (2 * n_pairs):.1f} B/read; "
-               if mode == "device" else "")
+               if mode != "host" else "")
         print(f"pe {title}, {mode}: {wall:.3f} s wall, {n_pairs / wall:.0f} "
-              f"pairs/s; {_stage_line(met)}; kernel launches {launches}; "
-              f"{h2d}routes {met['routes']}", flush=True)
+              f"pairs/s; {_stage_line(met)}; kernel launches {la}; "
+              f"{h2d}routes {met['routes']}{_hybrid_line(met)}", flush=True)
 
 
 def phase_pe(trim_cuda, card, device, workdir):
@@ -395,7 +651,7 @@ def phase_pe(trim_cuda, card, device, workdir):
     from sickle_tpu_torch.engine.checkpoint import TrimCheckpoint
     from sickle_tpu_torch.utils.corpus import write_pairs
 
-    launches = 0
+    launches = {"raw": 0, "band": 0, "rank": 0}
     # two-file 2x150: the combined batch, uniform form
     r1 = os.path.join(workdir, "pe.1.fastq")
     r2 = os.path.join(workdir, "pe.2.fastq")
@@ -412,10 +668,10 @@ def phase_pe(trim_cuda, card, device, workdir):
         return base + [x for k, o in zip("ops", outs)
                        for x in (f"-{k}", o)], outs
 
-    runs, outs, summary, n = _pe_turns(
+    runs, outs, summary = _pe_turns(
         trim_cuda, cli, device, lambda k: two_file(k),
-        ("host", "device", "device", "host"), N_PE_PAIRS, "combined")
-    launches += n
+        ("host", "device", "auto", "device", "host"), N_PE_PAIRS, "combined",
+        launches)
     _print_pe_runs("two-file 2x150", runs, N_PE_PAIRS)
     dev_outs = [os.path.join(workdir, f"pe_1.{k}.fastq") for k in "ops"]
     with open(r1, "rb") as f1, open(r2, "rb") as f2:
@@ -435,21 +691,23 @@ def phase_pe(trim_cuda, card, device, workdir):
         ln for ln in summary.splitlines() if ln.startswith(("Total", "FastQ"))),
         flush=True)
     best = {m: min(w for mm, w, _, _ in runs if mm == m)
-            for m in ("device", "host")}
+            for m in ("device", "auto", "host")}
     print(f"pe e2e on {card}: device {N_PE_PAIRS / best['device']:.0f} pairs/s "
-          f"(best of 2: {best['device']:.3f} s), --cuts host "
-          f"{N_PE_PAIRS / best['host']:.0f} pairs/s ({best['host']:.3f} s); "
-          f"device/host {best['host'] / best['device']:.3f}; all outputs "
-          f"identical", flush=True)
+          f"(best of 2: {best['device']:.3f} s), auto "
+          f"{N_PE_PAIRS / best['auto']:.0f} pairs/s ({best['auto']:.3f} s), "
+          f"--cuts host {N_PE_PAIRS / best['host']:.0f} pairs/s "
+          f"({best['host']:.3f} s); device/host "
+          f"{best['host'] / best['device']:.3f}; all outputs identical",
+          flush=True)
 
     # --checkpoint on the same input: the same bytes, every record done
     ck = os.path.join(workdir, "pe.ck.json")
     argv, ck_outs = two_file("ck")
-    trim_cuda.LAUNCHES = 0
-    rc, so, se, wall = _run_cli(cli, argv + ["--checkpoint", ck], device)
-    check(rc == 0, f"pe --checkpoint run exited {rc}: {se[-2000:]}")
-    check(trim_cuda.LAUNCHES > 0, "the checkpointed pe run never launched")
-    launches += trim_cuda.LAUNCHES
+    _, so, _, wall, _, la = _run_mode(trim_cuda, cli,
+                                      argv + ["--checkpoint", ck], "device",
+                                      device)
+    for f, v in la.items():
+        launches[f] += v
     check(so == summary, "the checkpointed pe run's summary differs")
     for a, b in zip(ck_outs, dev_outs):
         check(_same_file(a, b), f"checkpointed output {a} differs")
@@ -460,20 +718,21 @@ def phase_pe(trim_cuda, card, device, workdir):
     for path in [r1, r2] + outs + dev_outs + ck_outs:
         os.unlink(path)
 
-    # interleaved -M, ragged 30-160 bp: the generic form
+    # interleaved -M, ragged 30-160 bp, all chars in range: the generic
+    # form of the band wire
     ri = os.path.join(workdir, "pe.i.fastq")
     with open(ri, "wb") as f:
-        write_pairs(f, None, 4343, N_PE_RAGGED, length=(30, 160),
-                    bad_tail=0.001)
+        write_pairs(f, None, 4343, N_PE_RAGGED, length=(30, 160))
 
     def inter(k):
         out = os.path.join(workdir, f"pe_M{k}.fastq")
         return ["pe", "-c", ri, "-t", "sanger", "-M", out], [out]
 
-    runs, outs, _, n = _pe_turns(trim_cuda, cli, device, inter,
-                                 ("host", "device"), N_PE_RAGGED,
-                                 "interleaved")
-    launches += n
+    band = launches["band"]
+    runs, outs, _ = _pe_turns(trim_cuda, cli, device, inter,
+                              ("host", "device"), N_PE_RAGGED,
+                              "interleaved", launches)
+    check(launches["band"] > band, "interleaved pe never rode the band wire")
     _print_pe_runs("interleaved -M ragged 30-160", runs, N_PE_RAGGED)
 
     # two-file, mate 2 growing each chunk: every chunk takes the split route
@@ -491,11 +750,10 @@ def phase_pe(trim_cuda, card, device, workdir):
         return (["pe", "-f", s1, "-r", s2, "-t", "sanger"]
                 + [a for x, o in zip("ops", outs) for a in (f"-{x}", o)], outs)
 
-    runs, _, _, n = _pe_turns(trim_cuda, cli, device, split,
-                              ("host", "device"), n_split, "split")
+    runs, _, _ = _pe_turns(trim_cuda, cli, device, split,
+                           ("host", "device"), n_split, "split", launches)
     check(runs[1][2]["routes"]["split"] == PE_SPLIT_CHUNKS,
           f"split routes {runs[1][2]['routes']}")
-    launches += n
     _print_pe_runs("two-file split route", runs, n_split)
     return launches
 
@@ -557,20 +815,37 @@ def main() -> int:
         raise SmokeError("torch.cuda.is_available() is false")
     from sickle_tpu_torch.ops import trim_cuda
 
+    t_start = time.perf_counter()
     card = phase_device(torch, trim_cuda)
     dev = torch.device("cuda", 0)
-    max_err, times = phase_kernels(torch, trim_cuda, dev)
+    errs, times = phase_kernels(torch, trim_cuda, dev)
     workdir = tempfile.mkdtemp(prefix="sickle_smoke_")
     try:
         launches = phase_e2e(trim_cuda, card, dev, workdir)
-        launches += phase_pe(trim_cuda, card, dev, workdir)
+        for form, n in phase_pe(trim_cuda, card, dev, workdir).items():
+            launches[form] += n
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    print(json.dumps({"kernels": [{
-        "name": "trim_cuts", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": times["kernel_uniform"], "plain_ms": times["plain"],
-    }]}))
+    for form in ("raw", "band", "rank"):
+        check(launches[form] > 0, f"the main path never launched the "
+              f"{form} form: {launches}")
+    print(f"smoke: all phases passed in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    print(f"card: {card}", flush=True)
+    print(json.dumps({"kernels": [
+        {"name": "trim_cuts", "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES, "launches": launches["raw"],
+         "max_abs_err": errs["raw"], "ms": times["kernel_uniform"],
+         "plain_ms": times["plain"]},
+        {"name": "trim_cuts[band]", "route": "cuda", "source": SOURCE,
+         "replaces": "sickle_tpu/ops/trim.py:93", "launches": launches["band"],
+         "max_abs_err": errs["band"], "ms": times["band"],
+         "plain_ms": times["band_plain"]},
+        {"name": "trim_cuts[rank]", "route": "cuda", "source": SOURCE,
+         "replaces": "sickle_tpu/ops/trim.py:153", "launches": launches["rank"],
+         "max_abs_err": errs["rank"], "ms": times["rank"],
+         "plain_ms": times["rank_plain"]},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

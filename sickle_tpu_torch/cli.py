@@ -4,12 +4,16 @@ The same flags, usage text, summaries, error text and exit codes as the
 JAX package's CLI (``sickle_tpu/cli.py``), which is flag-compatible with
 the reference (src/sickle.cpp:41-84, src/trim_single.cpp:83-211,
 src/trim_paired.cpp:109-263).  The device is an explicit ``torch.device``
-handed to ``main``; ``--cuts auto`` and ``--cuts device`` run the CUDA
-cuts kernel on it, ``--cuts host`` the C++ host kernel.  ``--checkpoint``
-makes se and pe runs restartable.
+handed to ``main``.  Compute placement (``--cuts``) follows the JAX
+package's default on one accelerator: ``auto`` and ``hybrid`` run the
+hybrid router (``engine/hybrid.py``) over the CUDA cuts kernel on that
+device, with the C++ host kernel taking overflow and stalls; ``device``
+runs the CUDA kernel alone; ``host`` the indexed C++ host kernel alone
+(rows are never packed).  ``--checkpoint`` makes se and pe runs
+restartable.
 
 Not ported yet, and refused with exit code 1 rather than ignored:
-``--dist``, ``--devices`` above 1 and ``--cuts hybrid``.
+``--dist`` and ``--devices`` above 1.
 """
 
 from __future__ import annotations
@@ -213,8 +217,6 @@ def _refused(dist_on: bool, devices: Optional[int], cuts_mode: str,
         return _not_ported("--dist")
     if devices is not None and devices > 1:
         return _not_ported("--devices above 1")
-    if cuts_mode == "hybrid":
-        return _not_ported("--cuts hybrid")
     if (cuts_mode != "host" and device.type == "cuda"
             and not torch.cuda.is_available()):
         sys.stderr.write(
@@ -224,17 +226,43 @@ def _refused(dist_on: bool, devices: Optional[int], cuts_mode: str,
     return None
 
 
+_ACTIVE_CUTS_FN = None  # last built cuts fn; its workers stop in _finish
+
+
 def _build_cuts_fn(params: TrimParams, mode: str, device: torch.device,
                    cfg: EngineConfig):
-    """--cuts host: the C++ host kernel; auto/device: the CUDA kernel on
-    ``device`` (a CPU device runs the kernel's plain PyTorch version)."""
+    """The cuts fn for ``--cuts`` (the JAX package's ``default_cuts_fn``):
+
+    * host: the hybrid fn with no device (every chunk takes the indexed
+      host kernel, rows never packed), or the row-packed host kernel when
+      the native library is missing;
+    * device: the CUDA kernel on ``device`` alone;
+    * auto/hybrid: the hybrid router over the CUDA kernel when the native
+      library is there (``auto`` unless ``SICKLE_TPU_HYBRID`` turns it
+      off), else the CUDA kernel alone.
+
+    A CPU ``device`` runs the kernel's plain PyTorch version.  Building
+    the device fn builds the kernel library and creates the CUDA context,
+    so the first chunk does not pay them."""
+    global _ACTIVE_CUTS_FN
+    from .engine.hybrid import HybridCutsFn, hybrid_enabled
+
     if mode == "host":
-        from .ops.trim_host import host_cuts_fn
+        if native.available():
+            fn = HybridCutsFn(params, None)
+        else:
+            from .ops.trim_host import host_cuts_fn
 
-        return host_cuts_fn(params)
-    from .engine.pipeline import _cuda_cuts_fn
+            fn = host_cuts_fn(params)
+    else:
+        from .engine.pipeline import _cuda_cuts_fn
 
-    return _cuda_cuts_fn(params, device, cfg.slice_rows)
+        fn = _cuda_cuts_fn(params, device, cfg.slice_rows)
+        if mode != "device" and native.available() and hybrid_enabled(
+                True if mode == "hybrid" else None):
+            fn = HybridCutsFn(params, fn)
+    _ACTIVE_CUTS_FN = fn
+    return fn
 
 
 def _open_resumable(path: str, gzip_out: bool = False):
@@ -759,8 +787,22 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
     if argv[0] == "--help":
         return main_usage(0)
     if argv[0] == "pe":
-        return pe_main(argv[1:], device)
-    return se_main(argv[1:], device)
+        return _finish(pe_main(argv[1:], device))
+    return _finish(se_main(argv[1:], device))
+
+
+def _finish(rc: int) -> int:
+    """Stop the hybrid fn's workers before interpreter teardown.  If a
+    worker is WEDGED in a device call that never returns, exit hard with
+    the real return code: all user-visible output is already flushed."""
+    global _ACTIVE_CUTS_FN
+    fn, _ACTIVE_CUTS_FN = _ACTIVE_CUTS_FN, None
+    close = getattr(fn, "close", None)
+    if close is not None and close() is False:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(rc)
+    return rc
 
 
 if __name__ == "__main__":

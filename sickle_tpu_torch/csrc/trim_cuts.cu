@@ -4,23 +4,32 @@
 // Replaces sickle_tpu/ops/trim_pallas.py::_trim_kernel (generic ragged
 // rows), ::_trim_kernel_noseq (the same without the -n seq operand),
 // ::_trim_kernel_uniform and ::_trim_kernel_uniform_noseq (static window
-// for uniform-length chunks), and fuses the two XLA programs that wrap
-// them on the JAX path: derive_lengths (read length = first zero byte of
-// the quality row) as the prologue and encode (one int32 per read) as the
-// epilogue (sickle_tpu/engine/pipeline.py, _tpu_cuts_fn).  The math is
-// that of sickle_tpu_torch/ops/trim.py::compute_cuts, the plain version
+// for uniform-length chunks), and fuses the XLA programs that wrap them on
+// the JAX path (sickle_tpu/engine/pipeline.py, _tpu_cuts_fn): derive_lengths
+// (read length = first zero value of the row) and the wire decoders
+// sickle_tpu/ops/trim.py::decode_fields (the field wire) and ::apply_rank_lut
+// (the rank wire) as the load prologue, and encode (one int32 per read) as
+// the epilogue.  The math is that of sickle_tpu_torch/ops/trim.py
+// (compute_cuts for raw rows, wire_codes for the wires), the plain versions
 // this kernel is held against (bit-exact, int32 two's-complement sums).
 //
-// What bounds it on the H100: bytes.  A 150 bp read brings ~152 B of
-// quality row in (plus 152 B of seq under -n) and sends 4 B out, for a few
-// hundred integer ops, far below the ~295 ops/B where compute would bind;
-// and the quality row crosses PCIe before it ever reaches HBM, so the
-// kernel's job is to touch each input byte from HBM once and keep every
-// intermediate out of device memory.  The design answers that:
+// What bounds it on the H100: bytes.  A 150 bp read brings ~152 B of raw
+// quality row in (114 B on the 6-bit field wire, 57 B on the 3-bit rank
+// wire; plus 152 B of seq under -n) and sends 4 B out, for a few hundred
+// integer ops, far below the ~295 ops/B where compute would bind; and the
+// row crosses PCIe before it ever reaches HBM, so the kernel's job is to
+// touch each input byte from HBM once and keep every intermediate out of
+// device memory.  The design answers that:
 //
 // * One warp per row, kRowsPerBlock rows per block.  The row is read with
 //   coalesced byte loads (32 consecutive bytes per warp instruction); the
 //   later passes re-read the same bytes from L1.
+// * The row's source form is a template parameter: RAW ASCII qualities,
+//   the BAND field wire (q = v + bias) or the RANK wire (q = lut[v]).  Every
+//   read of a quality goes through one accessor that decodes position j
+//   from the row as it lies in device memory (at most three subfield bytes
+//   for a wire), so the decoded row v never exists in device memory and
+//   shared memory stays at zero.
 // * No prefix array is materialized.  The TPU kernels build the whole
 //   D[j] = C[j] - t*j row in VMEM and shift it by the window w.  Here two
 //   running warp scans advance in lockstep, one at the window start i and
@@ -28,12 +37,13 @@
 //   stride of window starts.  Shared memory use is zero at every L, which
 //   is how long reads are handled: a 50 kbp row needs no 200 KB D array,
 //   no one-row-per-block dynamic shared memory and no global scratch.
-// * Every "first index" (5' trigger, 3' trigger, 5' cut, 3' cut, N/n) is a
-//   ballot plus __ffs over 32-wide strides with early exit, so a read
-//   whose 3' trigger fires early stops there.
+// * Every "first index" (length, 5' trigger, 3' trigger, 5' cut, 3' cut,
+//   N/n) is a ballot plus __ffs over 32-wide strides with early exit, so a
+//   read whose 3' trigger fires early stops there.
 // * The bad-quality flag covers the whole read (any out-of-range char, not
 //   only those the scan touches); the host re-derives scalar semantics for
-//   flagged rows, as on the JAX path.
+//   flagged rows, as on the JAX path.  On the wires the flag is 0: the host
+//   proved every char of the chunk in range before it chose one.
 //
 // Built with nvcc into a plain C ABI shared library (no PyTorch headers)
 // and called through ctypes from sickle_tpu_torch/ops/trim_cuda.py.
@@ -49,17 +59,30 @@ constexpr int kRowsPerBlock = 8;
 constexpr int kBig = 0x3FFFFFFF;
 constexpr unsigned kAll = 0xffffffffu;
 
+// The row's source form.
+constexpr int kRaw = 0;   // raw ASCII qualities, zero padded
+constexpr int kBand = 1;  // field wire of v = q - bias (io/fastq.qual_fields)
+constexpr int kRank = 2;  // field wire of v = 1 + rank (qual_rank_fields)
+
 struct Args {
   const uint8_t* seq;      // [B, L], read only under TRUNC_N
-  const uint8_t* qual;     // [B, L] raw ASCII qualities, zero padded
+  const uint8_t* qual;     // [B, row_bytes]: raw rows, or the wire's rows
   const int32_t* lengths;  // [B] explicit read lengths, or null: derive
   int32_t* out;            // [B] packed codes, or [3, B] (five, three, flag)
   long long B;
-  int L;
+  int L;                   // read positions per row
+  int row_bytes;           // L for raw rows, p * L / 8 on a wire
   int offset, qmin, qmax;  // the encoding
   int t, lthr;             // -q, -l
   int fork_order;          // -n looks for 'n' before 'N'
   int uniform_w;           // UNIFORM: the shared window size
+  // the wire's subfields (io/fastq.field_widths), at most three
+  int n_fields;
+  int f_log2w[3];          // log2 of the field's width in bits (4, 2, 1)
+  int f_shift[3];          // the field's bit offset in v
+  int f_col[3];            // the field's first byte in the wire row
+  int bias;                // BAND: q = v + bias
+  unsigned long long lut;  // RANK: q = byte v of lut, as a signed char
 };
 
 __device__ __forceinline__ unsigned warp_inclusive_sum(unsigned x, int lane) {
@@ -82,31 +105,59 @@ __device__ __forceinline__ unsigned lanes_from(int k) {
   return k <= 0 ? kAll : (k >= kWarp ? 0u : (kAll << k));
 }
 
-// First j in [from, len) with pred(row[j]), else kBig.
+// What the row holds at position j, 0 for padding: the raw char, or the
+// wire's v, ORed together from its subfields.  A field of width w keeps
+// 8 / w positions per byte, lowest position in the lowest bits.
+template <int SRC>
+__device__ __forceinline__ int value_at(const Args& a, const uint8_t* row, int j) {
+  if (SRC == kRaw) return row[j];
+  int v = 0;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (k < a.n_fields) {
+      const int lw = a.f_log2w[k];
+      const int byte = row[a.f_col[k] + (j >> (3 - lw))];
+      const int at = (j & ((8 >> lw) - 1)) << lw;  // (j mod 8/w) * w
+      v |= ((byte >> at) & ((1 << (1 << lw)) - 1)) << a.f_shift[k];
+    }
+  }
+  return v;
+}
+
+// The decoded quality of a non-padding value.
+template <int SRC>
+__device__ __forceinline__ int quality_of(const Args& a, int v) {
+  if (SRC == kRaw) return v - a.offset;
+  if (SRC == kBand) return v + a.bias;
+  return static_cast<int>(static_cast<int8_t>(a.lut >> (8 * (v & 7))));
+}
+
+// First j in [from, len) with pred(j), else kBig.
 template <class Pred>
-__device__ __forceinline__ int first_from(const uint8_t* row, int from,
-                                          int len, int lane, Pred pred) {
+__device__ __forceinline__ int first_from(int from, int len, int lane, Pred pred) {
   for (int s = from & ~(kWarp - 1); s < len; s += kWarp) {
     const int j = s + lane;
-    const unsigned m = __ballot_sync(kAll, j >= from && j < len && pred(row[j]));
+    const unsigned m = __ballot_sync(kAll, j >= from && j < len && pred(j));
     if (m) return s + __ffs(m) - 1;
   }
   return kBig;
 }
 
 // The cuts of one non-empty read; returns false when it is discarded.
-template <bool UNIFORM, bool TRUNC_N, bool NO_FIVE>
+template <int SRC, bool UNIFORM, bool TRUNC_N, bool NO_FIVE>
 __device__ __forceinline__ bool row_cuts(const Args& a, const uint8_t* qrow,
                                          const uint8_t* srow, int len,
                                          int lane, int& five, int& three) {
   const int t = a.t;
-  const int off = a.offset;
   const int w = UNIFORM ? a.uniform_w : (len / 10 > 0 ? len / 10 : len);
   const int last = len - w;  // last window start: i + w <= len
 
-  // decoded quality inside the read, 0 past its end (as the sums see it)
+  // decoded quality at j < len; 0 past the read's end (as the sums see it)
+  auto q_of = [&](int j) -> int {
+    return quality_of<SRC>(a, value_at<SRC>(a, qrow, j));
+  };
   auto q_at = [&](int j) -> unsigned {
-    return j < len ? static_cast<unsigned>(static_cast<int>(qrow[j]) - off) : 0u;
+    return j < len ? static_cast<unsigned>(q_of(j)) : 0u;
   };
 
   // Running exclusive prefixes C[b] (window starts) and C[b + w] (window
@@ -149,14 +200,12 @@ __device__ __forceinline__ bool row_cuts(const Args& a, const uint8_t* qrow,
   // 5' cut: first position >= i5 with q >= t
   five = 0;
   if (!NO_FIVE) {
-    five = min(first_from(qrow, i5, len, lane,
-                          [&](int c) { return c - off >= t; }), len);
+    five = min(first_from(i5, len, lane, [&](int j) { return q_of(j) >= t; }), len);
   }
   // 3' cut: first position >= i3 with q < t; the read end if no trigger
   three = len;
   if (i3 != kBig) {
-    three = min(first_from(qrow, i3, len, lane,
-                           [&](int c) { return c - off < t; }), len);
+    three = min(first_from(i3, len, lane, [&](int j) { return q_of(j) < t; }), len);
   }
   // -n: truncate to the base before the first N ('N' then 'n' for 1.33,
   // 'n' then 'N' for the fork); an N at position 0 gives three = -1
@@ -178,7 +227,7 @@ __device__ __forceinline__ bool row_cuts(const Args& a, const uint8_t* qrow,
   return len >= a.lthr && three - five >= a.lthr;
 }
 
-template <bool UNIFORM, bool TRUNC_N, bool NO_FIVE, bool PACKED>
+template <int SRC, bool UNIFORM, bool TRUNC_N, bool NO_FIVE, bool PACKED>
 __global__ void __launch_bounds__(kRowsPerBlock * kWarp)
 trim_cuts_kernel(const Args a) {
   const int lane = threadIdx.x & (kWarp - 1);
@@ -186,12 +235,12 @@ trim_cuts_kernel(const Args a) {
       static_cast<long long>(blockIdx.x) * kRowsPerBlock + threadIdx.x / kWarp;
   if (row >= a.B) return;  // the whole warp leaves together
   const int L = a.L;
-  const uint8_t* qrow = a.qual + row * L;
+  const uint8_t* qrow = a.qual + row * a.row_bytes;
 
   // 1. the read's length, and whether any char inside it is out of range
   int len = L;
   bool bad = false;
-  if (a.lengths != nullptr) {
+  if (SRC == kRaw && a.lengths != nullptr) {
     len = min(max(a.lengths[row], 0), L);
     for (int j = lane; j < len; j += kWarp) {
       const int c = qrow[j];
@@ -200,10 +249,11 @@ trim_cuts_kernel(const Args a) {
   } else {
     for (int s = 0; s < L; s += kWarp) {
       const int j = s + lane;
-      const int c = j < L ? qrow[j] : 0;  // lanes past the row read as padding
+      // lanes past the row read as padding
+      const int c = j < L ? value_at<SRC>(a, qrow, j) : 0;
       const unsigned z = __ballot_sync(kAll, c == 0);
       const int end = z ? s + __ffs(z) - 1 : s + kWarp;
-      if (j < end) bad |= c < a.qmin || c > a.qmax;
+      if (SRC == kRaw && j < end) bad |= c < a.qmin || c > a.qmax;
       if (z) {
         len = end;
         break;
@@ -215,8 +265,8 @@ trim_cuts_kernel(const Args a) {
   // 2. the cuts; padding rows (len 0) are always discarded
   int five = -1, three = -1;
   const uint8_t* srow = TRUNC_N ? a.seq + row * L : nullptr;
-  if (len == 0 ||
-      !row_cuts<UNIFORM, TRUNC_N, NO_FIVE>(a, qrow, srow, len, lane, five, three)) {
+  if (len == 0 || !row_cuts<SRC, UNIFORM, TRUNC_N, NO_FIVE>(a, qrow, srow, len,
+                                                            lane, five, three)) {
     five = -1;
     three = -1;
   }
@@ -233,19 +283,30 @@ trim_cuts_kernel(const Args a) {
   }
 }
 
-template <int V>
+template <int SRC, int V>
 void launch(const Args& a, dim3 grid, cudaStream_t stream) {
-  trim_cuts_kernel<(V & 1) != 0, (V & 2) != 0, (V & 4) != 0, (V & 8) != 0>
+  trim_cuts_kernel<SRC, (V & 1) != 0, (V & 2) != 0, (V & 4) != 0, (V & 8) != 0>
       <<<grid, kRowsPerBlock * kWarp, 0, stream>>>(a);
 }
 
 using LaunchFn = void (*)(const Args&, dim3, cudaStream_t);
-// indexed by uniform | trunc_n << 1 | no_five << 2 | packed << 3
-const LaunchFn kLaunch[16] = {
-    launch<0>, launch<1>, launch<2>,  launch<3>,  launch<4>,  launch<5>,
-    launch<6>, launch<7>, launch<8>,  launch<9>,  launch<10>, launch<11>,
-    launch<12>, launch<13>, launch<14>, launch<15>,
+// raw rows, indexed by uniform | trunc_n << 1 | no_five << 2 | packed << 3
+const LaunchFn kLaunchRaw[16] = {
+    launch<kRaw, 0>,  launch<kRaw, 1>,  launch<kRaw, 2>,  launch<kRaw, 3>,
+    launch<kRaw, 4>,  launch<kRaw, 5>,  launch<kRaw, 6>,  launch<kRaw, 7>,
+    launch<kRaw, 8>,  launch<kRaw, 9>,  launch<kRaw, 10>, launch<kRaw, 11>,
+    launch<kRaw, 12>, launch<kRaw, 13>, launch<kRaw, 14>, launch<kRaw, 15>,
 };
+// the wires never carry seq (-n takes raw rows) and always pack the
+// result (L < 32766); indexed by [rank][uniform | no_five << 1]
+const LaunchFn kLaunchWire[2][4] = {
+    {launch<kBand, 8>, launch<kBand, 9>, launch<kBand, 12>, launch<kBand, 13>},
+    {launch<kRank, 8>, launch<kRank, 9>, launch<kRank, 12>, launch<kRank, 13>},
+};
+
+dim3 grid_for(long long B) {
+  return dim3(static_cast<unsigned>((B + kRowsPerBlock - 1) / kRowsPerBlock));
+}
 
 }  // namespace
 
@@ -258,13 +319,14 @@ extern "C" int sk_trim_cuts(const void* seq, const void* qual,
                             int lthr, int no_five, int trunc_n, int fork_order,
                             int uniform_w, int packed, void* stream) {
   if (B <= 0) return 0;
-  Args a;
+  Args a = {};
   a.seq = static_cast<const uint8_t*>(seq);
   a.qual = static_cast<const uint8_t*>(qual);
   a.lengths = static_cast<const int32_t*>(lengths);
   a.out = static_cast<int32_t*>(out);
   a.B = B;
   a.L = L;
+  a.row_bytes = L;
   a.offset = offset;
   a.qmin = qmin;
   a.qmax = qmax;
@@ -272,9 +334,42 @@ extern "C" int sk_trim_cuts(const void* seq, const void* qual,
   a.lthr = lthr;
   a.fork_order = fork_order;
   a.uniform_w = uniform_w;
-  const dim3 grid(static_cast<unsigned>((B + kRowsPerBlock - 1) / kRowsPerBlock));
   const int v = (uniform_w > 0 ? 1 : 0) | (trunc_n ? 2 : 0) |
                 (no_five ? 4 : 0) | (packed ? 8 : 0);
-  kLaunch[v](a, grid, static_cast<cudaStream_t>(stream));
+  kLaunchRaw[v](a, grid_for(B), static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same step on a wire chunk: `wire` is [B, row_bytes] (row_bytes =
+// p * L / 8), `fields` holds n_fields triples (log2 width, bit offset in
+// v, first byte in the row).  rank = 0: the band wire, q = v + bias;
+// rank = 1: q = lut byte v as a signed char (v < 8).  `out` is [B] int32
+// packed codes; lengths are the first v == 0.
+extern "C" int sk_trim_cuts_wire(const void* wire, void* out, long long B,
+                                 int L, int row_bytes, int rank, int n_fields,
+                                 const int* fields, int bias,
+                                 unsigned long long lut, int t, int lthr,
+                                 int no_five, int uniform_w, void* stream) {
+  if (B <= 0) return 0;
+  if (n_fields < 1 || n_fields > 3) return static_cast<int>(cudaErrorInvalidValue);
+  Args a = {};
+  a.qual = static_cast<const uint8_t*>(wire);
+  a.out = static_cast<int32_t*>(out);
+  a.B = B;
+  a.L = L;
+  a.row_bytes = row_bytes;
+  a.t = t;
+  a.lthr = lthr;
+  a.uniform_w = uniform_w;
+  a.n_fields = n_fields;
+  for (int k = 0; k < n_fields; ++k) {
+    a.f_log2w[k] = fields[3 * k];
+    a.f_shift[k] = fields[3 * k + 1];
+    a.f_col[k] = fields[3 * k + 2];
+  }
+  a.bias = bias;
+  a.lut = lut;
+  const int v = (uniform_w > 0 ? 1 : 0) | (no_five ? 2 : 0);
+  kLaunchWire[rank ? 1 : 0][v](a, grid_for(B), static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

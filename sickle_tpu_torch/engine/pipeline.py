@@ -11,9 +11,11 @@ Chunks hold a fixed record count, so device shapes stay constant.
 Counters are exact and global (the reference's pe ``total`` bug,
 SURVEY.md §2.4.7, is not reproduced).  The device step is
 ``_cuda_cuts_fn``: one hand-written CUDA kernel launch per
-``[slice_rows, L]`` piece (``ops/trim_cuda.py``).  Rows are always
-packed: the hybrid router's indexed host mode and the wire formats are
-not ported yet.
+``[slice_rows, L]`` piece (``ops/trim_cuda.py``), fed raw rows or the
+field/rank wire that ``prepare`` packs on the producer thread.  The
+cuts fn may be the hybrid router (``engine/hybrid.py``), which decides
+per chunk whether rows are packed at all: chunks bound for the indexed
+host kernel are parsed but never copied into row matrices.
 """
 
 from __future__ import annotations
@@ -25,14 +27,16 @@ import os
 import queue
 import stat as _stat
 import threading
+import time
 from typing import BinaryIO, Callable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..constants import Compat
+from ..constants import QUALITY_CONSTANTS, Compat
 from ..io import native
 from ..io.fastq import (
+    QUAL_PLANES,
     OutputBuffer,
     PackedReads,
     PackWorkspace,
@@ -42,6 +46,9 @@ from ..io.fastq import (
     assemble_records_at,
     pack_fastq,
     pack_fastq_stream,
+    qual_fields,
+    qual_levels,
+    qual_rank_fields,
     record_out_sizes,
 )
 from ..oracle import (
@@ -51,7 +58,7 @@ from ..oracle import (
     decode_qual,
     sliding_window_cuts,
 )
-from ..ops.trim import BIG, TrimParams
+from ..ops.trim import BIG, MAX_PACKED_L, TrimParams
 from ..utils.metrics import Metrics, maybe as _stage
 from .chunker import iter_record_chunks
 
@@ -161,28 +168,87 @@ def _emit_records(out_stream, data, fields, five, three, compat, qualtype,
 
 
 def _adapt_cuts_fn(fn: CutsFn) -> Callable:
-    """Normalize a cuts fn to the (seq, qual, lengths, qual_clean=...) form.
+    """Normalize a cuts fn to the kwarg-accepting form
+    (seq, qual, lengths, qual_clean=..., wire=...).
 
     ``qual_clean=True`` tells the device step the packer proved the
     zero-padding invariant (PackedReads.qual_clean), so read lengths can be
-    derived on the device.  Plain 3-arg fns (the host kernel, tests) are
-    wrapped to ignore it.
+    derived on the device; ``wire`` carries the producer-thread-prepared
+    wire payload.  Plain 3-arg fns (the host kernel, tests) are wrapped to
+    ignore both.
     """
     import inspect
 
+    def forward_attrs(wrapped):
+        # engine-protocol attributes (lazy dispatch, producer-thread wire
+        # prep) survive the wrapper, or those paths would silently vanish
+        for attr in ("lazy", "prepare"):
+            if hasattr(fn, attr):
+                setattr(wrapped, attr, getattr(fn, attr))
+        return wrapped
+
     try:
-        if "qual_clean" in inspect.signature(fn).parameters:
+        sig = inspect.signature(fn)
+        if "wire" in sig.parameters or any(
+            p.kind == inspect.Parameter.VAR_KEYWORD
+            for p in sig.parameters.values()
+        ):
             return fn
+        if "qual_clean" in sig.parameters:
+            return forward_attrs(
+                lambda seq, qual, lengths, qual_clean=False, wire=None: fn(
+                    seq, qual, lengths, qual_clean=qual_clean))
     except (TypeError, ValueError):
         pass
-    return lambda seq, qual, lengths, qual_clean=False: fn(seq, qual, lengths)
+    return forward_attrs(
+        lambda seq, qual, lengths, qual_clean=False, wire=None: fn(
+            seq, qual, lengths))
+
+
+def _need_rows_fn(cuts_fn):
+    """Per-chunk row-packing decision for the producer.  Static for
+    plain fns (``needs_rows`` attr; default True); dynamic for hybrid fns
+    (``want_rows()``): rows are packed only when the device might see the
+    chunk, the indexed host path reads the source buffer directly."""
+    want = getattr(cuts_fn, "want_rows", None)
+    if want is not None and getattr(cuts_fn, "call_packed", None) is not None:
+        return want
+    static = bool(getattr(cuts_fn, "needs_rows", True))
+    return lambda: static
+
+
+def _gated_prep(cuts_fn, mtr: Optional[Metrics] = None):
+    """Producer-thread wire prep, gated by the fn's routing hint: hybrid
+    fns skip the wire prep for chunks that will take the host kernel
+    anyway (``wire_useful``).  Timed as the ``prep`` stage when ``mtr``
+    collects metrics."""
+    prep = getattr(cuts_fn, "prepare", None)
+    if prep is None:
+        return None
+    gate = getattr(cuts_fn, "wire_useful", None)
+
+    def gated(packed):
+        # never build wire from unpacked (garbage) rows: an indexed chunk
+        # is host-bound by construction
+        if gate is None or (packed.rows_packed and gate()):
+            with _stage(mtr, "prep"):
+                prep(packed)
+
+    return gated
 
 
 def _finalize_window(cuts_fn) -> int:
     """In-order finalize window (chunks dispatched ahead of the oldest
-    un-fetched result).  0 for eager fns; 1 for lazy fns: the H2D and
-    kernel of chunk i+1 are issued before chunk i's result is awaited."""
-    return 1 if getattr(cuts_fn, "lazy", False) else 0
+    un-fetched result).  0 for eager fns; lazy fns default to 1 (the H2D
+    and kernel of chunk i+1 start before chunk i's result is
+    awaited); hybrid fns advertise a deeper ``pipeline_window`` spanning
+    both routes' queues.  ``SICKLE_TPU_WINDOW`` overrides it."""
+    if not getattr(cuts_fn, "lazy", False):
+        return 0
+    env = os.environ.get("SICKLE_TPU_WINDOW")
+    if env:
+        return int(env)
+    return int(getattr(cuts_fn, "pipeline_window", 1))
 
 
 class _Cancelled(BaseException):
@@ -351,14 +417,14 @@ def _bgzf_source(stream, stop) -> Optional[_BgzfSource]:
     return None
 
 
-def _produce_bgzf(src, pipe, state, mtr, params, eff_fn, put,
-                  batch_bytes=None, pair_align=False):
+def _produce_bgzf(src, pipe, state, mtr, params, need_rows, eff_fn,
+                  prep_put, batch_bytes=None, pair_align=False):
     """Shared zero-copy BGZF producer loop (se and interleaved pe): pack
     records in place from the decode window, extending the span (never
     advancing past partial-record bytes) when a record straddles a
     window, and — for interleaved pairs — handing an odd trailing record
-    back to the stream so pairs stay whole.  ``put`` consumes each
-    finished chunk (position bookkeeping + queue put)."""
+    back to the stream so pairs stay whole.  ``prep_put`` consumes each
+    finished chunk (position bookkeeping + wire prep + queue put)."""
     try:
         while True:
             eff, bm = eff_fn()
@@ -379,6 +445,7 @@ def _produce_bgzf(src, pipe, state, mtr, params, eff_fn, put,
                     workspace=ws, need_seq=params.trunc_n,
                     est_rec_bytes=state["est"],
                     batch_bytes=batch_bytes,
+                    need_rows=need_rows(),
                     at_eof=src.exhausted(),
                 )
             n = packed.n_records
@@ -401,7 +468,8 @@ def _produce_bgzf(src, pipe, state, mtr, params, eff_fn, put,
                 consumed = int(ws.starts4[4 * n])
                 packed.n_records = n
                 packed.lengths[n] = 0
-                packed.qual[n] = 0
+                if packed.rows_packed:
+                    packed.qual[n] = 0
             src.pos += consumed
             if n == 0:
                 # the odd-carry emptied a single-record window: extend
@@ -415,7 +483,7 @@ def _produce_bgzf(src, pipe, state, mtr, params, eff_fn, put,
             state["est"] = max(state["est"], -(-consumed // n))
             packed.source_ref = src.cur
             src.cur.retain()
-            put(packed)
+            prep_put(packed)
     finally:
         src.close()
 
@@ -456,31 +524,76 @@ def _cuda_cuts_fn(params: TrimParams, device, slice_rows: int = 1 << 16) -> Cuts
     protocol (port of the JAX package's ``_tpu_cuts_fn``):
 
     * each chunk goes out as ``[slice_rows, L]`` pieces plus the
-      power-of-two tail pieces; per piece the raw uint8 quality rows (and
-      the seq rows under -n) are copied H2D, ONE kernel launch on the
-      current stream computes lengths, cuts and the packed int32 codes,
-      and the codes come back D2H (``non_blocking``) into pinned host
-      memory behind a CUDA event;
+      power-of-two tail pieces; per piece ONE kernel launch on the current
+      stream computes lengths, cuts and the packed int32 codes, and the
+      codes come back D2H (``non_blocking``) into pinned host memory
+      behind a CUDA event;
+    * what a piece ships H2D is chosen per chunk by ``_wire_plan``, as in
+      the JAX package: the rank wire (<= 7 distinct quality chars, e.g.
+      binned Illumina: ``ceil(log2(levels+1))`` bits per position plus
+      the LUT), else the band field wire (``p`` bits per position above
+      ``bias``, ``p <= 6``, plus the bias), else the raw uint8 rows (and
+      the seq rows under -n).  ``prepare`` packs the wire on the
+      producer thread; ``SICKLE_TPU_NO_PLANES`` forces raw rows;
     * per-row lengths are derived in the kernel from the zero padding when
-      the packer proved that invariant (``qual_clean``); otherwise they
-      ship explicitly (a NUL inside a read is an invalid quality char and
-      must error, not truncate);
+      the packer proved that invariant (``qual_clean``) and the chunk is a
+      multiple of 8 rows; otherwise raw rows ship with explicit lengths (a
+      NUL inside a read is an invalid quality char and must error, not
+      truncate);
     * uniform-length chunks (padding rows are length 0) take the kernel's
       static-window form;
     * ``materialize()`` waits on the events, then decodes
       (``_decode_codes``); rows with ``L >= MAX_PACKED_L`` come back as
       the unpacked ``[3, B]`` result.
 
-    The H2D copies read the packer's pageable workspace: such a copy
-    returns once the source bytes are staged, so the workspace may be
-    recycled as soon as the call returns.  On a CPU device the same steps
-    run the plain PyTorch version (``ops/trim.py``).
+    The H2D copies read the packer's pageable workspace (or the wire
+    arrays): such a copy returns once the source bytes are staged, so the
+    workspace may be recycled as soon as the call returns.  On a CUDA
+    device the kernel library is built and the context created here,
+    before the first chunk.  On a CPU device the same steps run the plain
+    PyTorch version (``ops/trim.py``).
     """
-    from ..ops.trim_cuda import trim_cuts
+    from ..ops.trim_cuda import build, trim_cuts, trim_cuts_wire
 
     device = torch.device(device)
+    if device.type == "cuda":
+        build()
+        torch.empty(1, device=device)
     needs_seq = params.trunc_n
     SL = slice_rows
+    enc_offset, enc_qmin, enc_qmax = QUALITY_CONSTANTS[params.qualtype]
+    no_planes = bool(os.environ.get("SICKLE_TPU_NO_PLANES"))
+
+    def _wire_plan(qual, qual_clean, B):
+        """Per-chunk compressed-wire selection (data-dependent): the
+        whole chunk's chars must fit the encoding's range (so the range
+        check cannot fire; out-of-range chunks take the raw path whose
+        device check preserves the reference's error semantics).  Then
+        the cheapest exact format wins:
+
+        * ("rank", levels, p) — <= 7 distinct quality values (binned
+          Illumina): chars ship as dictionary ranks in
+          p = ceil(log2(levels+1)) bits, regardless of band width;
+        * ("band", bias, p)  — narrow band above bias = min - 1,
+          p = band bit width (<= 6);
+        * None — raw u8 rows.
+        """
+        if (needs_seq or no_planes or not qual_clean or B % 8
+                or qual.shape[1] % 8 or qual.shape[1] >= MAX_PACKED_L):
+            return None
+        levels = qual_levels(qual)
+        if levels.size == 0:
+            return None
+        mn, mx = int(levels[0]), int(levels[-1])
+        if mn < enc_qmin or mx > enc_qmax:
+            return None
+        p_band = (mx - (mn - 1)).bit_length()
+        p_rank = levels.size.bit_length() if levels.size <= 7 else 99
+        if p_rank < min(p_band, QUAL_PLANES + 1):
+            return ("rank", levels, p_rank)
+        if p_band <= QUAL_PLANES:
+            return ("band", mn - 1, max(p_band, 1))
+        return None
 
     def _pieces(B):
         # full slices, then the pow2-padded ragged tail (_clamp_bm) as
@@ -491,6 +604,20 @@ def _cuda_cuts_fn(params: TrimParams, device, slice_rows: int = 1 << 16) -> Cuts
             n = SL if rem >= SL else 1 << (rem.bit_length() - 1)
             yield i, n
             i += n
+
+    def _wire_pieces(qual, plan):
+        mode, arg, p = plan
+        pack = qual_rank_fields if mode == "rank" else qual_fields
+        return [pack(qual[i : i + n], arg, p)
+                for i, n in _pieces(qual.shape[0])]
+
+    def prepare(packed):
+        """Producer-thread wire prep: pack the chunk's wire fields off the
+        dispatch thread.  Stores ``(plan, [per-piece fields])`` on
+        ``packed.wire``, or None for raw rows."""
+        qual = packed.qual
+        plan = _wire_plan(qual, packed.qual_clean, qual.shape[0])
+        packed.wire = None if plan is None else (plan, _wire_pieces(qual, plan))
 
     def to_device(rows: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(rows)).to(
@@ -505,28 +632,50 @@ def _cuda_cuts_fn(params: TrimParams, device, slice_rows: int = 1 << 16) -> Cuts
         done.record(torch.cuda.current_stream(codes.device))
         return host, done
 
-    def fn(seq, qual, lengths, qual_clean=False):
+    def fn(seq, qual, lengths, qual_clean=False, wire=None):
         lengths = np.asarray(lengths)
-        B = qual.shape[0]
-        explicit = not qual_clean
+        B, L = qual.shape
+        explicit = not qual_clean or B % 8 != 0
         # uniform-length chunk (incl. length-0 padding rows): one window
         mx = int(lengths.max()) if lengths.size else 0
         uniform = (mx > 0 and int(np.count_nonzero(
             (lengths == mx) | (lengths == 0))) == lengths.size)
+        ul = mx if uniform else None
+        plan = None
+        if not explicit:
+            if wire is not None:
+                plan, fields = wire
+            else:
+                plan = _wire_plan(qual, qual_clean, B)
+                fields = _wire_pieces(qual, plan) if plan is not None else None
+        if plan is not None:
+            mode, arg, p = plan
+            if mode == "rank":
+                lut = np.zeros(1 << p, np.int32)
+                lut[1 : 1 + arg.size] = arg.astype(np.int32) - enc_offset
+                kw, side = dict(lut=lut), lut.nbytes
+            else:
+                kw, side = dict(bias=arg - enc_offset), 4
         parts = []
         h2d = 0
-        for i, n in _pieces(B):
-            q = to_device(qual[i : i + n])
-            s = to_device(seq[i : i + n]) if needs_seq else None
-            lens = (to_device(lengths[i : i + n].astype(np.int32, copy=False))
-                    if explicit else None)
-            h2d += n * qual.shape[1] * (2 if needs_seq else 1)
-            h2d += 4 * n if explicit else 0
-            parts.append(fetch(trim_cuts(q, params, lengths=lens, seq=s,
-                                         uniform_len=mx if uniform else None)))
+        for k, (i, n) in enumerate(_pieces(B)):
+            if plan is not None:
+                codes = trim_cuts_wire(to_device(fields[k]), p, L, params,
+                                       uniform_len=ul, **kw)
+                h2d += fields[k].nbytes + side
+            else:
+                q = to_device(qual[i : i + n])
+                s = to_device(seq[i : i + n]) if needs_seq else None
+                lens = (to_device(lengths[i : i + n].astype(np.int32, copy=False))
+                        if explicit else None)
+                h2d += n * L * (2 if needs_seq else 1) + (4 * n if explicit else 0)
+                codes = trim_cuts(q, params, lengths=lens, seq=s, uniform_len=ul)
+            parts.append(fetch(codes))
         fn.last_h2d = h2d
         return _PendingCodes(parts)
 
+    fn.prepare = prepare
+    fn.device = device
     fn.lazy = True  # returns _PendingCodes; fetch deferred to the window
     fn.last_h2d = 0
     return fn
@@ -739,12 +888,14 @@ class _Pipeline:
                 self.errors.append(e)
                 self.stop.set()
 
-    def run(self, producer, dispatcher, consume, finalize=None, window=0):
+    def run(self, producer, dispatcher, consume, finalize=None, window=0,
+            on_drain=None):
         """``finalize``/``window``: dispatched chunks are held in a
         bounded deque and finalized (device-result fetch) on the main
         thread only after ``window`` newer chunks have been dispatched —
-        H2D of chunk i+1 overlaps compute/D2H of chunk i without any
-        concurrent device interaction (single calling thread)."""
+        H2D of chunk i+1 overlaps compute/D2H of chunk i.
+        ``on_drain`` fires once the producer has delivered its last
+        chunk (hybrid fns rescue their pending device tail)."""
         from collections import deque
 
         tp = threading.Thread(target=self._producer_loop, args=(producer,), daemon=True)
@@ -765,12 +916,22 @@ class _Pipeline:
                 pending.append(dispatcher(item))
                 while len(pending) > window:
                     self.write_q.put(finalize(pending.popleft()))
+            if on_drain is not None and not self.stop.is_set():
+                on_drain()
             while pending and not self.stop.is_set():
                 self.write_q.put(finalize(pending.popleft()))
         finally:
             self.write_q.put(_SENTINEL)
             tw.join()
-            tp.join(timeout=10)
+            # a dispatch or fetch error leaves the producer blocked on a
+            # full pack_q: stop it and drain until it has left
+            self.stop.set()
+            deadline = time.monotonic() + 10
+            while tp.is_alive() and time.monotonic() < deadline:
+                try:
+                    self.pack_q.get(timeout=0.05)
+                except queue.Empty:
+                    pass
             drained = []
             while True:
                 try:
@@ -803,9 +964,17 @@ def run_se(
     cfg = cfg or EngineConfig()
     cuts_fn = _adapt_cuts_fn(
         cuts_fn or _cuda_cuts_fn(params, "cuda", cfg.slice_rows))
+    prep = _gated_prep(cuts_fn, cfg.metrics)
+    call_packed = getattr(cuts_fn, "call_packed", None)
+    # indexed host-cuts mode: the fn reads records straight from the
+    # source buffer via the line index, so row matrices are not packed.
+    # Hybrid fns decide PER CHUNK (want_rows): rows are packed only when
+    # the device might see the chunk
+    need_rows = _need_rows_fn(cuts_fn)
     # lazy cuts fns defer the result fetch so chunk i+1's dispatch
     # overlaps chunk i's device compute/D2H (one extra in-flight chunk,
-    # hence one extra workspace)
+    # hence one extra workspace); hybrid fns ask for a deeper window
+    # covering both routes' queues
     window = _finalize_window(cuts_fn)
     pipe = _Pipeline(cfg.prefetch, n_workspaces=cfg.prefetch + 2 + window,
                      need_seq=params.trunc_n)
@@ -834,6 +1003,7 @@ def run_se(
                         need_seq=params.trunc_n,
                         est_rec_bytes=state["est"],
                         batch_bytes=cfg.bytes_per_batch,
+                        need_rows=need_rows(),
                     )
                 off += consumed
                 if packed.n_records == 0:  # trailing partial record
@@ -844,6 +1014,8 @@ def run_se(
                 state["consumed"] += packed.n_records
                 state["l_max"] = max(state["l_max"], packed.max_len)
                 state["est"] = max(state["est"], -(-consumed // packed.n_records))
+                if prep is not None:
+                    prep(packed)  # wire prep off the dispatch thread
                 pipe.pack_q.put(packed)
             return
         src = (_bgzf_source(in_stream, pipe.stop)
@@ -851,13 +1023,15 @@ def run_se(
         if src is not None:
             # zero-copy gzip: BGZF windows inflate straight into the pack
             # source buffer; records parse in place (see _BgzfSource)
-            def put(packed):
+            def prep_put(packed):
                 state["consumed"] += packed.n_records
+                if prep is not None:
+                    prep(packed)
                 pipe.pack_q.put(packed)
 
-            _produce_bgzf(src, pipe, state, mtr, params,
+            _produce_bgzf(src, pipe, state, mtr, params, need_rows,
                           lambda: _effective_chunk(cfg, state["l_max"]),
-                          put, batch_bytes=cfg.bytes_per_batch)
+                          prep_put, batch_bytes=cfg.bytes_per_batch)
             return
         for chunk in iter_record_chunks(
             in_stream,
@@ -874,22 +1048,28 @@ def run_se(
                     workspace=pipe.get_workspace(),
                     need_seq=params.trunc_n,
                     batch_bytes=cfg.bytes_per_batch,
+                    need_rows=need_rows(),
                 )
             if mtr is not None:
                 mtr.add_chunk(packed.n_records, len(chunk))
             state["consumed"] += packed.n_records
             state["l_max"] = max(state["l_max"], packed.max_len)
+            if prep is not None:
+                prep(packed)  # wire prep off the dispatch thread
             pipe.pack_q.put(packed)
 
     def dispatcher(packed: PackedReads):
-        # device work is issued on the main thread; the result fetch
-        # happens in finalize (also main thread, after `window` newer
-        # dispatches) so all device interaction stays strictly sequential
-        # while H2D overlaps compute across chunks
+        # device work starts here (main thread, or the hybrid fn's
+        # device worker); the result fetch happens in finalize, after
+        # `window` newer dispatches, so H2D overlaps compute across chunks
         h2d = packed.qual.nbytes * (2 if params.trunc_n else 1)
         with _stage(mtr, "dispatch", h2d):
-            result = cuts_fn(packed.seq, packed.qual, packed.lengths,
-                             qual_clean=packed.qual_clean)
+            if call_packed is not None:
+                result = call_packed(packed)
+            else:
+                result = cuts_fn(packed.seq, packed.qual, packed.lengths,
+                                 qual_clean=packed.qual_clean,
+                                 wire=packed.wire)
         if mtr is not None:  # bytes actually shipped by the device step
             mtr.h2d_bytes[-1] = getattr(cuts_fn, "last_h2d", h2d)
         return packed, result
@@ -930,9 +1110,11 @@ def run_se(
 
     try:
         pipe.run(producer, dispatcher, consume, finalize=finalize,
-                 window=window)
+                 window=window, on_drain=getattr(cuts_fn, "drain", None))
     finally:
         _outbuf_return(outbuf)
+    if mtr is not None:
+        mtr.add_cuts_fn(cuts_fn)
     return counters
 
 
@@ -1004,6 +1186,9 @@ def run_pe(
     cfg = cfg or EngineConfig()
     cuts_fn = _adapt_cuts_fn(
         cuts_fn or _cuda_cuts_fn(params, "cuda", cfg.slice_rows))
+    prep = _gated_prep(cuts_fn, cfg.metrics)
+    call_packed = getattr(cuts_fn, "call_packed", None)
+    need_rows = _need_rows_fn(cuts_fn)  # see run_se
     window = _finalize_window(cuts_fn)  # see run_se
     # two-file runs check out one workspace per mate file per chunk
     pipe = _Pipeline(cfg.prefetch,
@@ -1036,6 +1221,7 @@ def run_pe(
                 workspace=pipe.get_workspace(),
                 need_seq=params.trunc_n,
                 batch_bytes=cfg.bytes_per_batch,
+                need_rows=need_rows(),
             )
         if mtr is not None:
             mtr.add_chunk(packed.n_records, len(chunk))
@@ -1049,6 +1235,8 @@ def run_pe(
                 "to load. Maybe it's not an interleaved file?"
             )
         state["consumed"] += packed.n_records
+        if prep is not None:
+            prep(packed)  # wire prep off the dispatch thread
         pipe.pack_q.put((packed, None))
 
     def producer():
@@ -1069,6 +1257,7 @@ def run_pe(
                             workspace=ws,
                             need_seq=params.trunc_n,
                             est_rec_bytes=state["est"],
+                            need_rows=need_rows(),
                         )
                     off += consumed
                     if packed.n_records == 0:
@@ -1085,8 +1274,8 @@ def run_pe(
             src = (_bgzf_source(in1, pipe.stop)
                    if cfg.skip_records == 0 else None)
             if src is not None:  # zero-copy gzip (see run_se)
-                _produce_bgzf(src, pipe, state, mtr, params, eff_chunk,
-                              put_interleaved, pair_align=True)
+                _produce_bgzf(src, pipe, state, mtr, params, need_rows,
+                              eff_chunk, put_interleaved, pair_align=True)
                 return
             for chunk in iter_record_chunks(in1, lambda: eff_chunk()[0],
                                             skip_records=cfg.skip_records,
@@ -1117,6 +1306,8 @@ def run_pe(
                         "Batch2 and Batch1 have different lengths, exiting"
                     )
                 state["consumed"] += packed.n_records
+                if prep is not None:
+                    prep(packed)
                 pipe.pack_q.put((packed, n1))
 
     def _produce_two_file_mmap(m1, m2):
@@ -1130,9 +1321,11 @@ def run_pe(
 
         Falls back to two independent batches for a chunk when the
         combined pack cannot share one row stride (row-length growth
-        discovered mid-chunk).  Queue items are ``((pk1, pk2, comb),
-        None)``; ``comb`` is the combined batch, or None for the split
-        route."""
+        discovered mid-chunk) or when the chunk's rows are not packed
+        (indexed host-cuts mode: a combined line index cannot span two
+        buffers, so indexed chunks keep per-mate dispatch).  Queue items
+        are ``((pk1, pk2, comb), None)``; ``comb`` is the combined batch,
+        or None for per-mate dispatch."""
         arr1, off1 = m1
         arr2, off2 = m2
         skip_each = cfg.skip_records // 2
@@ -1144,20 +1337,23 @@ def run_pe(
             n1 = n2 = 0
             c1 = c2 = 0
             eff, bm = eff_chunk()
+            combine = nr = need_rows()
             with _stage(mtr, "pack"):
                 ws1 = None
                 if off1 is not None and off1 < arr1.size:
                     ws1 = pipe.get_workspace()
-                    # reserve rows for BOTH mates up front: a later
-                    # ensure() would reallocate and drop mate-1's rows
-                    ws1.ensure(2 * eff + bm,
-                               _round_up(max(state["l_max"], 1), 8), bm)
+                    if combine:
+                        # reserve rows for BOTH mates up front: a later
+                        # ensure() would reallocate and drop mate-1's rows
+                        ws1.ensure(2 * eff + bm,
+                                   _round_up(max(state["l_max"], 1), 8), bm)
                     pk1, c1 = pack_fastq_stream(
                         arr1, off1, eff, start_position=pos,
                         l_max=state["l_max"], batch_multiple=bm,
                         workspace=ws1, need_seq=params.trunc_n,
                         est_rec_bytes=state["est"],
                         batch_bytes=cfg.bytes_per_batch,
+                        need_rows=nr,
                     )
                     off1 += c1
                     state["l_max"] = max(state["l_max"], pk1.max_len)
@@ -1169,15 +1365,17 @@ def run_pe(
                         ws1 = pk1 = None
                 if off2 is not None and off2 < arr2.size:
                     ws2 = (_OffsetWorkspace(ws1, n1, pk1.max_len)
-                           if n1 else pipe.get_workspace())
+                           if combine and n1 else pipe.get_workspace())
                     try:
                         pk2, c2 = pack_fastq_stream(
                             arr2, off2, n1 if n1 else 1, start_position=pos,
-                            l_max=pk1.max_len if n1 else state["l_max"],
+                            l_max=(pk1.max_len if combine and n1
+                                   else state["l_max"]),
                             batch_multiple=bm,
                             workspace=ws2, need_seq=params.trunc_n,
                             est_rec_bytes=state["est"],
                             batch_bytes=cfg.bytes_per_batch,
+                            need_rows=nr,
                         )
                     except _OffsetOverflow:
                         # mate-2 rows outgrow the shared stride: repack
@@ -1195,6 +1393,7 @@ def run_pe(
                             workspace=ws2, need_seq=params.trunc_n,
                             est_rec_bytes=state["est"],
                             batch_bytes=cfg.bytes_per_batch,
+                            need_rows=nr,
                         )
                     off2 += c2
                     state["l_max"] = max(state["l_max"], pk2.max_len)
@@ -1218,6 +1417,12 @@ def run_pe(
                 mtr.add_chunk(2 * n1, c1 + c2)
             pos += n1
             state["consumed"] += 2 * n1
+            if prep is not None:
+                if comb is not None:
+                    prep(comb)
+                else:
+                    prep(pk1)
+                    prep(pk2)
             pipe.pack_q.put(((pk1, pk2, comb), None))
 
     def dispatcher(item):
@@ -1226,8 +1431,10 @@ def run_pe(
         mul = 2 if params.trunc_n else 1
 
         def call(pk):
+            if call_packed is not None:
+                return call_packed(pk)
             return cuts_fn(pk.seq, pk.qual, pk.lengths,
-                           qual_clean=pk.qual_clean)
+                           qual_clean=pk.qual_clean, wire=pk.wire)
 
         if isinstance(packed, tuple):  # mate batches (mmap producer)
             pk1, pk2, comb = packed
@@ -1248,7 +1455,9 @@ def run_pe(
                 h2d += getattr(cuts_fn, "last_h2d", pk2.qual.nbytes * mul)
             if mtr is not None:  # bytes actually shipped by the device step
                 mtr.h2d_bytes[-1] = h2d
-                mtr.add_route("split")
+                # per-mate dispatch: rows overflowed the shared stride
+                # (split), or were never packed (indexed host kernel)
+                mtr.add_route("split" if pk1.rows_packed else "indexed")
             return packed, n1, (r1, r2)
         with _stage(mtr, "dispatch", packed.qual.nbytes * mul):
             result = call(packed)
@@ -1303,9 +1512,11 @@ def run_pe(
 
     try:
         pipe.run(producer, dispatcher, consume, finalize=finalize,
-                 window=window)
+                 window=window, on_drain=getattr(cuts_fn, "drain", None))
     finally:
         _outbuf_return(outbuf)
+    if mtr is not None:
+        mtr.add_cuts_fn(cuts_fn)
     return counters
 
 

@@ -16,6 +16,11 @@ All arithmetic is int32 with two's-complement wrap, like the JAX
 package's int32 path, so results are bit-identical to it.  These are the
 plain versions the CUDA kernel (``ops/trim_cuda.py``) is held against,
 and what its wrapper runs for tensors that lie on the CPU.
+
+The compressed wires (``io/fastq.qual_fields`` / ``qual_rank_fields``)
+decode here too: ``decode_fields`` (the field wire's biased value ``v``),
+``apply_rank_lut`` (rank -> quality) and ``wire_codes``, the whole device
+step of a wire chunk.
 """
 
 from __future__ import annotations
@@ -219,3 +224,63 @@ def trim_codes(seq: Optional[torch.Tensor], qual: torch.Tensor,
         lengths = derive_lengths(qual)
     five, three, bad = compute_cuts(seq, qual, lengths, params, uniform_len)
     return encode_codes(five, three, bad, lengths, qual.shape[1])
+
+
+def decode_fields(buf: torch.Tensor, p: int, L: int) -> torch.Tensor:
+    """Inverse of ``io/fastq.qual_fields`` / ``qual_rank_fields``.
+
+    ``buf`` is ``uint8[B, p*L//8]``: the ``p``-bit value split into
+    byte-aligned 4/2/1-bit subfields (layout in ``io/fastq.field_widths``;
+    ``L % 8 == 0``).  Returns ``v`` as ``uint8[B, L]``; padding packs to
+    all-zero fields, so ``v == 0`` marks padding exactly.
+    """
+    from ..io.fastq import field_widths
+
+    lane = torch.arange(L, device=buf.device)
+    v = None
+    for w, sh, colf in field_widths(p):
+        col = int(colf * L)
+        per = 8 // w
+        sub = buf[:, col:col + L * w // 8]
+        rep = sub.repeat_interleave(per, dim=1)  # byte j // per at lane j
+        shift = ((lane % per) * w).to(torch.uint8)
+        part = ((rep >> shift) & ((1 << w) - 1)) << sh
+        v = part if v is None else v | part
+    return v
+
+
+def apply_rank_lut(v: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """Rank-wire decode: ``q = lut[v]`` for ``v`` in ``[1, len(lut))``, 0
+    elsewhere (0 is padding; ``io/fastq.qual_rank_fields`` is the host
+    inverse)."""
+    q = torch.zeros_like(v)
+    for k in range(1, lut.shape[0]):
+        q = torch.where(v == k, lut[k].to(v.dtype), q)
+    return q
+
+
+def wire_codes(buf: torch.Tensor, p: int, L: int, params: TrimParams, *,
+               bias: Optional[int] = None, lut=None,
+               uniform_len: Optional[int] = None) -> torch.Tensor:
+    """The device step of a wire chunk in plain PyTorch (the JAX
+    package's ``step_planes`` / ``step_planes_rank``): decode ``v``,
+    derive each length from the first ``v == 0``, decode the quality
+    (``v + bias`` on the band wire, ``lut[v]`` on the rank wire) and
+    return the packed int32 codes ``(five+1) << 16 | (three+1)``.  The
+    bad-quality flag is always 0: the host proved every char in range
+    before it chose a wire.  ``-n`` never takes a wire."""
+    if params.trunc_n:
+        raise ValueError("the wire carries no seq rows: -n takes raw rows")
+    if (bias is None) == (lut is None):
+        raise ValueError("give exactly one of bias (band wire) and lut (rank wire)")
+    v = decode_fields(buf, p, L).to(torch.int32)
+    lane = torch.arange(L, dtype=torch.int32, device=buf.device)
+    lengths = torch.where(v == 0, lane, L).amin(dim=1)
+    if lut is None:
+        q = v + bias
+    else:
+        q = apply_rank_lut(v, torch.as_tensor(lut, dtype=torch.int32,
+                                              device=buf.device))
+    five, three = compute_cuts_from_q(q, lengths, params,
+                                      uniform_len=uniform_len)
+    return (three + 1) | ((five + 1) << 16)

@@ -1,18 +1,19 @@
-"""The CUDA cuts kernel (``csrc/trim_cuts.cu``) and its wrapper.
+"""The CUDA cuts kernel (``csrc/trim_cuts.cu``) and its wrappers.
 
 Port of ``sickle_tpu/ops/trim_pallas.py``: the four Pallas kernels
 (generic and uniform-window, each with and without the ``-n`` seq
 operand) become one templated CUDA kernel, which also fuses the JAX
-device step's length derivation (prologue) and result packing
-(epilogue).  The kernel is built with ``nvcc`` at first use into a
-plain-C shared library under the package's git-ignored ``_build/cuda``
-directory and bound with ctypes — no PyTorch headers, so the build takes
-seconds.
+device step's length derivation and wire decoders (``decode_fields``,
+``apply_rank_lut``: the load prologue) and result packing (epilogue).
+The kernel is built with ``nvcc`` at first use into a plain-C shared
+library under the package's git-ignored ``_build/cuda`` directory and
+bound with ctypes — no PyTorch headers, so the build takes seconds.
 
-``trim_cuts`` takes tensors: on a CUDA tensor it launches the kernel or
-raises; on a CPU tensor it runs the plain PyTorch version
-(``ops/trim.py::trim_codes``), which is also what the kernel is held
-against on the card.
+``trim_cuts`` (raw quality rows) and ``trim_cuts_wire`` (a field- or
+rank-wire chunk) take tensors: on a CUDA tensor they launch the kernel or
+raise; on a CPU tensor they run the plain PyTorch version
+(``ops/trim.py::trim_codes`` / ``wire_codes``), which is also what the
+kernel is held against on the card.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import Optional
 import torch
 
 from ..constants import Compat, QUALITY_CONSTANTS
-from .trim import MAX_PACKED_L, TrimParams, trim_codes
+from .trim import MAX_PACKED_L, TrimParams, trim_codes, wire_codes
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "trim_cuts.cu"
@@ -38,8 +39,10 @@ _LIB_PATH = _BUILD_DIR / "libtrim_cuts.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# kernel launches made by trim_cuts (one per call on a CUDA tensor)
+# kernel launches (one per call on a CUDA tensor): in all, and by the
+# row's source form (raw rows, the band wire, the rank wire)
 LAUNCHES = 0
+LAUNCHES_BY_FORM = {"raw": 0, "band": 0, "rank": 0}
 # the compiler's report (registers, spills) from the last build, or ""
 BUILD_LOG = ""
 
@@ -83,6 +86,11 @@ def build(force: bool = False) -> ctypes.CDLL:
         lib.sk_trim_cuts.argtypes = [vp, vp, vp, vp, ctypes.c_longlong,
                                      ci, ci, ci, ci, ci, ci, ci, ci, ci,
                                      ci, ci, vp]
+        lib.sk_trim_cuts_wire.restype = ci
+        lib.sk_trim_cuts_wire.argtypes = [vp, vp, ctypes.c_longlong, ci, ci,
+                                          ci, ci, ctypes.POINTER(ci), ci,
+                                          ctypes.c_ulonglong, ci, ci, ci, ci,
+                                          vp]
         _lib = lib
         return _lib
 
@@ -113,7 +121,6 @@ def trim_cuts(qual: torch.Tensor, params: TrimParams, *,
     or, for ``L >= MAX_PACKED_L``, the int32[3, B] stack (five, three,
     bad); see ``ops/trim.py::encode_codes``.
     """
-    global LAUNCHES
     if qual.device.type == "cpu":
         return trim_codes(seq if params.trunc_n else None, qual, lengths,
                           params, uniform_len)
@@ -152,5 +159,88 @@ def trim_cuts(qual: torch.Tensor, params: TrimParams, *,
         )
     if rc != 0:
         raise RuntimeError(f"trim_cuts kernel launch failed: CUDA error {rc}")
+    _count("raw")
+    return out
+
+
+def reset_counts() -> None:
+    """Set every launch count to 0."""
+    global LAUNCHES
+    LAUNCHES = 0
+    for form in LAUNCHES_BY_FORM:
+        LAUNCHES_BY_FORM[form] = 0
+
+
+def _count(form: str) -> None:
+    global LAUNCHES
     LAUNCHES += 1
+    LAUNCHES_BY_FORM[form] += 1
+
+
+def _lut_word(lut, p: int) -> int:
+    """The rank wire's LUT (``1 << p`` int32 entries, each in int8 range)
+    as the 64-bit word the kernel takes by value: entry k in byte k."""
+    vals = [int(x) for x in (lut.tolist() if hasattr(lut, "tolist") else lut)]
+    if len(vals) != 1 << p:
+        raise ValueError(f"the rank wire's LUT has {len(vals)} entries, "
+                         f"expected {1 << p}")
+    if any(not -128 <= x <= 127 for x in vals):
+        raise ValueError(f"rank LUT entries must fit a signed byte: {vals}")
+    return sum((x & 0xFF) << (8 * k) for k, x in enumerate(vals))
+
+
+def trim_cuts_wire(buf: torch.Tensor, p: int, L: int, params: TrimParams, *,
+                   bias: Optional[int] = None, lut=None,
+                   uniform_len: Optional[int] = None) -> torch.Tensor:
+    """The device step for one ``[B, p*L/8]`` wire batch (the field wire
+    of ``io/fastq.qual_fields`` with ``bias``, or the rank wire of
+    ``qual_rank_fields`` with ``lut``, ``1 << p`` entries, ``p <= 3``).
+
+    The kernel decodes each position as it reads it (the ``BAND`` /
+    ``RANK`` prologue), derives lengths from the first ``v == 0`` and
+    returns packed int32[B] codes ``(five+1) << 16 | (three+1)``; see
+    ``ops/trim.py::wire_codes``, the plain version.
+    """
+    if buf.device.type == "cpu":
+        return wire_codes(buf, p, L, params, bias=bias, lut=lut,
+                          uniform_len=uniform_len)
+    if buf.device.type != "cuda":
+        raise ValueError(f"trim_cuts_wire runs on cuda or cpu tensors, got {buf.device}")
+    if params.trunc_n:
+        raise ValueError("the wire carries no seq rows: -n takes raw rows")
+    if (bias is None) == (lut is None):
+        raise ValueError("give exactly one of bias (band wire) and lut (rank wire)")
+    if not 1 <= p <= 7 or (lut is not None and p > 3):
+        raise ValueError(f"no wire of {p} bits{' with a LUT' if lut is not None else ''}")
+    if L % 8 or not 0 < L < MAX_PACKED_L:
+        raise ValueError(f"wire rows need L % 8 == 0 and L < {MAX_PACKED_L}, got {L}")
+    if buf.dim() != 2:
+        raise ValueError(f"buf must be [B, p*L/8], got shape {tuple(buf.shape)}")
+    B = buf.shape[0]
+    _check("buf", buf, torch.uint8, (B, p * L // 8), buf.device)
+    if uniform_len is not None and uniform_len <= 0:
+        raise ValueError(f"uniform_len must be positive, got {uniform_len}")
+    lut_word = _lut_word(lut, p) if lut is not None else 0
+    out = torch.empty((B,), dtype=torch.int32, device=buf.device)
+    if B == 0:
+        return out
+    from ..io.fastq import field_widths
+
+    fields = [(w.bit_length() - 1, sh, int(colf * L))
+              for w, sh, colf in field_widths(p)]
+    flat = (ctypes.c_int * 9)(*[x for f in fields for x in f])
+    lib = build()
+    w = 0 if uniform_len is None else (uniform_len // 10 or uniform_len)
+    with torch.cuda.device(buf.device):
+        rc = lib.sk_trim_cuts_wire(
+            buf.data_ptr(), out.data_ptr(), B, L, p * L // 8,
+            int(lut is not None), len(fields), flat,
+            0 if bias is None else int(bias), lut_word,
+            params.qual_threshold, params.length_threshold,
+            int(params.no_fiveprime), w,
+            torch.cuda.current_stream(buf.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"trim_cuts_wire kernel launch failed: CUDA error {rc}")
+    _count("rank" if lut is not None else "band")
     return out

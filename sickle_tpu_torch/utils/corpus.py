@@ -108,6 +108,31 @@ def make_reads(
     return seq, qual, lengths
 
 
+def wire_quals(seed: int, n: int, L: int, p: int, *, rank: bool = False,
+               qualtype: QualityType = QualityType.SANGER,
+               uniform: Optional[int] = None) -> np.ndarray:
+    """uint8[n, L] quality rows that a ``p``-bit wire carries: chars drawn
+    from ``2**p - 1`` consecutive values (the band wire; fewer where the
+    encoding's range is narrower) or from ``2**p - 1`` levels spread over
+    the encoding (the rank wire), all in the encoding's range, zero
+    padded.  Lengths are 1..L, or ``uniform``; the last rows are padding
+    (length 0)."""
+    rng = np.random.default_rng(seed)
+    _, qmin, qmax = QUALITY_CONSTANTS[qualtype]
+    k = min((1 << p) - 1, qmax - qmin + 1)
+    if rank:
+        chars = np.sort(rng.choice(np.arange(qmin, qmax + 1), k, replace=False))
+    else:
+        lo = int(rng.integers(qmin, qmax - k + 2))
+        chars = np.arange(lo, lo + k)
+    qual = chars[rng.integers(0, k, (n, L))].astype(np.uint8)
+    lengths = (np.full(n, uniform) if uniform is not None
+               else rng.integers(1, L + 1, n))
+    lengths[-max(n // 16, 1):] = 0
+    qual[np.arange(L)[None, :] >= lengths[:, None]] = 0
+    return qual
+
+
 def fastq_bytes(seq: np.ndarray, qual: np.ndarray, lengths: np.ndarray,
                 first: int = 0, names: Optional[np.ndarray] = None) -> bytes:
     """FASTQ text of the rows, named ``@r<first + i>`` (9 digits), or

@@ -17,13 +17,20 @@ disabled: one ``is None`` test per stage per chunk.
 Stages recorded per chunk:
 
 * ``pack``      — host parse+pack (producer thread), plus input bytes
+* ``prep``      — wire prep: the chunk's wire plan and field/rank pack
+                  (producer thread; once per prepared batch, so a pe
+                  chunk dispatched per mate records two)
 * ``dispatch``  — device RPC issue (main thread; H2D + async compute)
 * ``fetch``     — result materialization (main thread; D2H sync point)
 * ``consume``   — quality recheck + assemble + output write (writer thread)
 
 and, per run, how many chunks took each device-batch route (pe: one
-``combined`` mate-1 + mate-2 batch, two ``split`` batches, or one
-``interleaved`` batch).
+``combined`` mate-1 + mate-2 batch, two ``split`` batches, one
+``interleaved`` batch, or two ``indexed`` per-mate chunks whose rows were
+never packed) and, when the cuts fn is the hybrid router, its routing
+counters: chunks sent to the device, to the host, rescued after a stall,
+resolved by the host at the end of input (drained) and probe duplicates,
+and the EWMA per-chunk service time of each route.
 """
 
 from __future__ import annotations
@@ -51,11 +58,24 @@ class StageTimer:
         return False
 
 
+# the hybrid router's counters, as the --metrics JSON names them
+HYBRID_FIELDS = (
+    ("chunks_device", "n_device"),
+    ("chunks_host", "n_host"),
+    ("chunks_rescued", "n_rescued"),
+    ("chunks_drained", "n_drained"),
+    ("chunks_probe", "n_probe"),
+    ("ewma_dev_ms", "ewma_dev_ms"),
+    ("ewma_host_ms", "ewma_host_ms"),
+)
+
+
 class Metrics:
     """Collects per-chunk stage timings for one engine run."""
 
     def __init__(self) -> None:
         self.pack_ms: list = []
+        self.prep_ms: list = []
         self.dispatch_ms: list = []
         self.fetch_ms: list = []
         self.consume_ms: list = []
@@ -64,11 +84,15 @@ class Metrics:
         self.h2d_bytes: list = []
         self.out_bytes: list = []
         self.routes: dict = {}
+        self.hybrid: Optional[dict] = None
         self.t_start = time.perf_counter()
 
     # -- stage hooks (each returns a context manager) -----------------
     def pack(self) -> StageTimer:
         return StageTimer(self.pack_ms)
+
+    def prep(self) -> StageTimer:
+        return StageTimer(self.prep_ms)
 
     def add_chunk(self, records: int, in_bytes: int) -> None:
         """Record a packed chunk's size (call once per chunk, post-pack)."""
@@ -82,6 +106,12 @@ class Metrics:
     def add_route(self, name: str) -> None:
         """Count one chunk dispatched by the named route (main thread)."""
         self.routes[name] = self.routes.get(name, 0) + 1
+
+    def add_cuts_fn(self, fn) -> None:
+        """Record the hybrid router's counters, when ``fn`` has them
+        (call once the run has ended)."""
+        if hasattr(fn, "n_device"):
+            self.hybrid = {k: getattr(fn, a) for k, a in HYBRID_FIELDS}
 
     def fetch(self) -> StageTimer:
         return StageTimer(self.fetch_ms)
@@ -126,7 +156,7 @@ class Metrics:
                 "max_ms": round(max(lst), 2),
             }
 
-        return {
+        out = {
             "chunks": self.n_chunks,
             "records": sum(self.records),
             "in_bytes": sum(self.in_bytes),
@@ -134,12 +164,16 @@ class Metrics:
             "out_bytes": sum(self.out_bytes),
             "wall_ms": round((time.perf_counter() - self.t_start) * 1e3, 2),
             "pack": agg(self.pack_ms),
+            "prep": agg(self.prep_ms),
             "dispatch": agg(self.dispatch_ms),
             "fetch": agg(self.fetch_ms),
             "consume": agg(self.consume_ms),
             "stalled": self.stalled(),
             "routes": dict(self.routes),
         }
+        if self.hybrid is not None:
+            out["hybrid"] = dict(self.hybrid)
+        return out
 
     def report(self, stream=None, per_chunk: bool = True) -> None:
         """Human-readable table to ``stream`` (default stderr)."""

@@ -1,10 +1,12 @@
 """``sickle_tpu_torch se`` against ``sickle_tpu se``, byte for byte.
 
 The port's CLI runs in-process on the CPU device (the kernel wrapper then
-takes its plain PyTorch path through the same device step) and with
-``--cuts host``; the JAX package's CLI runs as it runs everywhere in this
-test suite.  Output bytes, the summary, error text and exit codes must
-be identical on every corpus.
+takes its plain PyTorch path through the same device step) in every
+``--cuts`` mode: ``device``, ``host`` (the indexed host kernel), and
+``auto``/``hybrid`` (the hybrid router over the device step); the JAX
+package's CLI runs as it runs everywhere in this test suite.  Output
+bytes, the summary, error text and exit codes must be identical on every
+corpus.
 """
 
 import pytest
@@ -134,11 +136,73 @@ def test_profile_writes_a_trace(corpus_dir, capsysbinary):
     assert (trace_dir / "trace.json").stat().st_size > 0
 
 
+@pytest.mark.parametrize("mode", ["auto", "hybrid"])
+@pytest.mark.parametrize("corpus", ["uniform150", "ragged", "binned",
+                                    "solexa", "bad_in_scan"])
+def test_se_hybrid_modes_match_jax_package(corpus, mode, capsysbinary,
+                                           tmp_path):
+    """``--cuts auto`` and ``--cuts hybrid`` (the router over the device
+    step, host overflow) write the JAX package's bytes, summary and
+    errors over several chunks; ``--metrics`` reports the router's
+    counters."""
+    import json
+
+    qt, kw = CORPORA[corpus]
+    src = str(tmp_path / "in.fastq")
+    with open(src, "wb") as f:
+        write_fastq(f, 300 + len(corpus), 9000, chunk=3000, **kw)
+    argv = ["se", "-f", src, "-t", qt, "-b", "1"]  # 4,096-read chunks
+    want_out = str(tmp_path / "jax.fastq")
+    got_out = str(tmp_path / "torch.fastq")
+    want = run(jax_cli.main, argv + ["-o", want_out], capsysbinary)
+    got = run(lambda a: torch_cli.main(a, device="cpu"),
+              argv + ["-o", got_out, "--cuts", mode, "--metrics"],
+              capsysbinary)
+    assert got[:2] == want[:2]
+    if want[0]:
+        assert got[2] == want[2]
+        return
+    with open(got_out, "rb") as a, open(want_out, "rb") as b:
+        assert a.read() == b.read()
+    met = json.loads(got[2].decode().splitlines()[-1][len("metrics: "):])
+    hy = met["hybrid"]
+    assert hy["chunks_device"] + hy["chunks_host"] == met["chunks"] == 3
+
+
+@pytest.mark.parametrize("mode", ["auto", "hybrid"])
+@pytest.mark.parametrize("layout", ["two_file", "interleaved"])
+def test_pe_hybrid_modes_match_jax_package(layout, mode, corpus_dir,
+                                           capsysbinary, tmp_path):
+    from sickle_tpu_torch.utils.corpus import write_pairs
+
+    r1, r2 = tmp_path / "r1.fastq", tmp_path / "r2.fastq"
+    with open(r1, "wb") as f1, open(r2, "wb") as f2:
+        if layout == "two_file":
+            write_pairs(f1, f2, 31, 9000, mate1=dict(length=150),
+                        mate2=dict(length=(30, 160)), bad_tail=0.01)
+        else:
+            write_pairs(f1, None, 32, 5000, length=(30, 160), binned=True)
+    runs = []
+    for main, tag, extra in ((jax_cli.main, "jax", []),
+                             (lambda a: torch_cli.main(a, device="cpu"),
+                              "torch", ["--cuts", mode])):
+        outs = [str(tmp_path / f"{tag}.{k}.fastq") for k in "ops"]
+        if layout == "two_file":
+            argv = ["pe", "-f", str(r1), "-r", str(r2), "-o", outs[0],
+                    "-p", outs[1], "-s", outs[2]]
+        else:
+            argv = ["pe", "-c", str(r1), "-m", outs[0], "-s", outs[2]]
+            outs = [outs[0], outs[2]]
+        rc = run(main, argv + ["-t", "sanger", "-b", "1"] + extra,
+                 capsysbinary)
+        runs.append((rc, [open(o, "rb").read() for o in outs]))
+    assert runs[0] == runs[1] and runs[0][0][0] == 0
+
+
 @pytest.mark.parametrize("cmd", ["se", "pe"])
 @pytest.mark.parametrize("extra, what", [
     (["--dist"], b"--dist"),
     (["--devices", "2"], b"--devices above 1"),
-    (["--cuts", "hybrid"], b"--cuts hybrid"),
 ])
 def test_unported_options_are_refused(extra, what, cmd, corpus_dir,
                                       capsysbinary):

@@ -1,4 +1,5 @@
-"""The CUDA cuts kernel on the card against its plain PyTorch version.
+"""The CUDA cuts kernel on the card against its plain PyTorch versions
+(raw rows, and the band and rank wires), and the hybrid router over it.
 
 These tests need an NVIDIA GPU and nvcc and skip elsewhere.  The file
 imports no JAX, so on a machine without it they run with:
@@ -6,6 +7,7 @@ imports no JAX, so on a machine without it they run with:
     SICKLE_TPU_TEST_REAL_DEVICE=1 python -m pytest tests/test_torch_cuda.py -m cuda
 """
 
+import dataclasses
 import io
 
 import numpy as np
@@ -13,12 +15,25 @@ import pytest
 import torch
 
 from sickle_tpu_torch.constants import Compat, QualityType
+from sickle_tpu_torch.constants import QUALITY_CONSTANTS
 from sickle_tpu_torch.engine import EngineConfig
+from sickle_tpu_torch.engine.hybrid import HybridCutsFn
 from sickle_tpu_torch.engine.pipeline import _cuda_cuts_fn, run_pe, run_se
+from sickle_tpu_torch.io.fastq import qual_fields, qual_levels, qual_rank_fields
 from sickle_tpu_torch.ops import trim_cuda
-from sickle_tpu_torch.ops.trim import MAX_PACKED_L, TrimParams, trim_codes
+from sickle_tpu_torch.ops.trim import (
+    MAX_PACKED_L,
+    TrimParams,
+    trim_codes,
+    wire_codes,
+)
 from sickle_tpu_torch.ops.trim_host import host_cuts_fn
-from sickle_tpu_torch.utils.corpus import fastq_bytes, make_reads, write_pairs
+from sickle_tpu_torch.utils.corpus import (
+    fastq_bytes,
+    make_reads,
+    wire_quals,
+    write_pairs,
+)
 from sickle_tpu_torch.utils.metrics import Metrics
 
 pytestmark = pytest.mark.cuda
@@ -32,6 +47,18 @@ PARAMS = [
     TrimParams(S, 0, 0, False, False, Compat.V133),
     TrimParams(S, 40, no_fiveprime=True, trunc_n=True),
 ]
+# the nine trim configurations of chip_smoke.py, -n off (no wire takes -n)
+WIRE_PARAMS = [dataclasses.replace(p, trunc_n=False) for p in [
+    TrimParams(S, 60, 20, False, False, Compat.FORK),
+    TrimParams(S, 20, 20, False, True, Compat.V133),
+    TrimParams(I, 30, 30, True, False, Compat.V133),
+    TrimParams(X, 20, 5, False, True, Compat.FORK),
+    TrimParams(S, 0, 0, False, False, Compat.V133),
+    TrimParams(S, 60, compat=Compat.FORK),
+    TrimParams(S, 20),
+    TrimParams(S, 30, trunc_n=True),
+    TrimParams(S, 40, no_fiveprime=True),
+]]
 
 
 @pytest.fixture(scope="module")
@@ -185,3 +212,125 @@ def test_kernel_matches_plain_fuzz(dev):
             got = trim_cuda.trim_cuts(q_d, p, lengths=lengths, seq=s_d,
                                       uniform_len=ul)
             assert torch.equal(got, want), (p, L, B, ul)
+
+
+def _wire(qual, p, rank, qualtype):
+    """(wire rows, kernel args) for a qual matrix on a p-bit wire."""
+    offset = QUALITY_CONSTANTS[qualtype][0]
+    levels = qual_levels(qual)
+    if rank:
+        lut = np.zeros(1 << p, np.int32)
+        lut[1:1 + levels.size] = levels.astype(np.int32) - offset
+        return qual_rank_fields(qual, levels, p), dict(lut=lut)
+    bias = int(levels[0]) - 1
+    return qual_fields(qual, bias, p), dict(bias=bias - offset)
+
+
+@pytest.mark.parametrize("form", ["generic", "uniform"])
+@pytest.mark.parametrize("wire, p", [("band", p) for p in range(1, 7)]
+                         + [("rank", p) for p in range(1, 4)])
+def test_wire_kernel_matches_plain(wire, p, form, dev):
+    """The BAND / RANK prologue forms against wire_codes, and against the
+    raw-row kernel on the same chars (in range: flag 0, same codes)."""
+    L = 152
+    ul = 150 if form == "uniform" else None
+    before = dict(trim_cuda.LAUNCHES_BY_FORM)
+    for k, params in enumerate(WIRE_PARAMS):
+        qual = wire_quals(100 * p + k, 2048, L, p, rank=wire == "rank",
+                          qualtype=params.qualtype, uniform=ul)
+        buf, kw = _wire(qual, p, wire == "rank", params.qualtype)
+        want = wire_codes(torch.from_numpy(buf), p, L, params,
+                          uniform_len=ul, **kw)
+        got = trim_cuda.trim_cuts_wire(torch.from_numpy(buf).to(dev), p, L,
+                                       params, uniform_len=ul, **kw)
+        raw = trim_cuda.trim_cuts(torch.from_numpy(qual).to(dev), params,
+                                  uniform_len=ul)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), (params, p)
+        assert torch.equal(raw.cpu(), want), (params, p)
+    assert (trim_cuda.LAUNCHES_BY_FORM[wire] - before[wire]
+            == len(WIRE_PARAMS))
+
+
+def test_wire_device_step_ships_the_wire(dev):
+    """The device step on the card picks the JAX package's plan: rank
+    wire for binned quals, band wire for Sanger 0-41, raw rows with an
+    out-of-range char; results equal the CPU device step's."""
+    p = TrimParams(S, 20)
+    cases = {
+        "rank": make_reads(31, 3000, length=150, width=152, binned=True)[1],
+        "band": make_reads(32, 3000, length=(30, 152), width=152)[1],
+        "raw": make_reads(33, 3000, length=150, width=152, bad_tail=0.05)[1],
+    }
+    for form, q in cases.items():
+        q = np.concatenate([q, np.zeros((72, 152), np.uint8)])
+        n = (q != 0).sum(axis=1).astype(np.int32)
+        before = dict(trim_cuda.LAUNCHES_BY_FORM)
+        gpu = _cuda_cuts_fn(p, dev, slice_rows=1024)
+        got = gpu(q, q, n, qual_clean=True)
+        cpu = _cuda_cuts_fn(p, "cpu", slice_rows=1024)
+        want = cpu(q, q, n, qual_clean=True)
+        for a, b in zip(got.materialize(), want.materialize()):
+            np.testing.assert_array_equal(a, b)
+        assert gpu.last_h2d == cpu.last_h2d
+        assert trim_cuda.LAUNCHES_BY_FORM[form] - before[form] == 3, form
+
+
+def test_wire_kernel_checks(dev):
+    buf = torch.zeros((64, 114), dtype=torch.uint8, device=dev)
+    p = TrimParams(S, 20)
+    with pytest.raises(ValueError):
+        trim_cuda.trim_cuts_wire(buf, 6, 152, TrimParams(trunc_n=True), bias=0)
+    with pytest.raises(ValueError):
+        trim_cuda.trim_cuts_wire(buf, 6, 150, p, bias=0)  # L % 8
+    with pytest.raises(ValueError):
+        trim_cuda.trim_cuts_wire(buf, 6, 152, p, lut=[0] * 64)  # rank p > 3
+    with pytest.raises(ValueError):
+        trim_cuda.trim_cuts_wire(buf[:, :100], 6, 152, p, bias=0)
+    with pytest.raises(ValueError):
+        trim_cuda.trim_cuts_wire(buf, 6, 152, p, bias=0, lut=[0] * 64)
+
+
+def test_hybrid_run_se_matches_host_kernel(dev):
+    """The router over the card's device step (auto mode): output equal
+    to the host kernel's, device chunks taken, no rescue."""
+    p = TrimParams(S, 20)
+    data = fastq_bytes(*make_reads(5, 200000, length=150))
+    outs = []
+    fn = HybridCutsFn(p, _cuda_cuts_fn(p, dev))
+    try:
+        for cuts in (fn, host_cuts_fn(p)):
+            out = io.BytesIO()
+            c = run_se(io.BytesIO(data), out, p, cuts_fn=cuts)
+            outs.append((out.getvalue(), c))
+    finally:
+        assert fn.close()
+    assert outs[0] == outs[1]
+    assert fn.n_device >= 1 and fn.n_rescued == 0
+
+
+def test_wire_kernel_matches_plain_fuzz(dev):
+    """Seeded adversarial wire batches: every encoding (Solexa's offset of
+    64 gives negative quals), every band width and rank count, lengths
+    0..L, thresholds up to 10**8 (the int32 D transform wraps), -x on and
+    off, uniform and generic forms."""
+    rng = np.random.default_rng(2025)
+    for _ in range(120):
+        L = int(rng.choice([8, 40, 152, 256, 1000]))
+        B = int(rng.integers(1, 300))
+        qt = QualityType(int(rng.choice([1, 2, 3])))
+        rank = bool(rng.random() < 0.4)
+        pw = int(rng.integers(1, 4 if rank else 7))
+        ul = int(rng.integers(1, L + 1)) if rng.random() < 0.3 else None
+        qual = wire_quals(int(rng.integers(1 << 30)), B, L, pw, rank=rank,
+                          qualtype=qt, uniform=ul)
+        if not qual.any():
+            continue
+        p = TrimParams(qt, int(rng.choice([0, 1, 20, 40, 93, 10 ** 8])),
+                       int(rng.integers(0, 60)), bool(rng.random() < 0.3))
+        buf, kw = _wire(qual, pw, rank, qt)
+        want = wire_codes(torch.from_numpy(buf), pw, L, p, uniform_len=ul,
+                          **kw)
+        got = trim_cuda.trim_cuts_wire(torch.from_numpy(buf).to(dev), pw, L,
+                                       p, uniform_len=ul, **kw)
+        assert torch.equal(got.cpu(), want), (p, L, B, pw, rank, ul)

@@ -54,13 +54,13 @@ print(max(rcs), loaded)
         assert (cwd / out).stat().st_size > 0
 
 
-@pytest.mark.parametrize("cuts", ["device", "host"])
+@pytest.mark.parametrize("cuts", ["device", "host", "hybrid"])
 def test_se_runs_without_jax(cuts, small_fastq):
     _run_without_jax([["se", "-f", "in.fastq", "-o", f"out.{cuts}.fastq"]],
                      cuts, small_fastq)
 
 
-@pytest.mark.parametrize("cuts", ["device", "host"])
+@pytest.mark.parametrize("cuts", ["device", "host", "hybrid"])
 def test_pe_and_checkpoint_run_without_jax(cuts, small_fastq):
     """Two-file pe, interleaved -M, se with --checkpoint and -g, and
     two-file pe with --checkpoint."""
@@ -99,6 +99,18 @@ print(len(names), sorted(m for m in sys.modules
     assert r.returncode == 0, r.stderr
     count, loaded = r.stdout.strip().split(" ", 1)
     assert int(count) >= 15 and loaded == "[]"
+
+
+def test_hybrid_router_imports_without_jax():
+    code = """
+import sys
+from sickle_tpu_torch.engine.hybrid import HybridCutsFn, hybrid_enabled
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "sickle_tpu")))
+"""
+    r = _python(code, REPO)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
 
 
 def _needs_cuda(argv, cwd):
