@@ -53,6 +53,22 @@ Phases (any failure raises, so the exit code is non-zero):
    - a device two-file run with ``--checkpoint``: outputs equal the plain
      device run's, and the sidecar records every input record as done.
    Each device run must launch the kernel, on the route it names.
+5. Across processes and devices (``--dist``, ``--devices``):
+   - ``--dist`` in two processes, each ``python -m sickle_tpu_torch``
+     with ``--cuts device --metrics`` on the card, gloo on 127.0.0.1:
+     phase 3's se file, a BGZF copy of its first 500,000 reads (written
+     with the port's ``BgzfWriter``), and phase 4's two-file 2x150 and
+     interleaved ragged (``-M``) inputs.  The shards
+     concatenated equal the single-process device run's outputs byte for
+     byte, rank 0 prints its summary exactly, rank 1 prints nothing, and
+     each rank's metrics show device chunks and H2D bytes; a serial gzip
+     input makes both ranks exit 1 with the JAX package's text;
+   - ``--devices 2`` on a one-card machine is clamped to the one card:
+     identical bytes;
+   - ``sharded_cuts_fn`` over ``[cuda:0] * 2`` and ``* 3`` (the padded
+     case) gives the single-device fn's codes on every chunk of the se
+     file, each piece launched as one block per shard.
+   Wall times and rates are printed as records, not claims.
 
 The last two lines of standard output are the kernels' JSON object
 (``{"kernels": [...]}``: the raw, band and rank forms of the one kernel,
@@ -84,6 +100,7 @@ N_PE_PAIRS = 1_000_000  # 2x150 bp pairs, two-file pe
 N_PE_RAGGED = 250_000  # ragged 30-160 bp pairs, interleaved -M
 N_BINNED = 1_000_000  # NovaSeq-binned 150 bp reads (the rank wire)
 PE_SPLIT_CHUNKS, PE_CHUNK = 6, 1 << 16  # split-route input: 6 chunks
+N_DIST_BGZF = 500_000  # reads of the se input copied to BGZF for --dist
 
 
 class SmokeError(Exception):
@@ -551,9 +568,9 @@ def phase_e2e(trim_cuda, card, device, workdir):
           f", auto {N_BINNED / runs['auto'][0][0]:.0f}, host "
           f"{N_BINNED / runs['host'][0][0]:.0f} reads/s; H2D {b_h2d:.1f} "
           f"B/read; outputs identical", flush=True)
-    for path in (src, bsrc, bout):
+    for path in (bsrc, bout):
         os.unlink(path)
-    return launches
+    return launches, src  # the se input stays for phase 5
 
 
 def _rescue_check(trim_cuda, device, src, want_out, n):
@@ -715,7 +732,7 @@ def phase_pe(trim_cuda, card, device, workdir):
     check(done == 2 * N_PE_PAIRS, f"checkpoint records_done {done}")
     print(f"pe --checkpoint device run: {wall:.3f} s wall, outputs equal the "
           f"plain device run's, records_done {done}", flush=True)
-    for path in [r1, r2] + outs + dev_outs + ck_outs:
+    for path in outs + dev_outs + ck_outs:  # the inputs stay for phase 5
         os.unlink(path)
 
     # interleaved -M, ragged 30-160 bp, all chars in range: the generic
@@ -755,6 +772,250 @@ def phase_pe(trim_cuda, card, device, workdir):
     check(runs[1][2]["routes"]["split"] == PE_SPLIT_CHUNKS,
           f"split routes {runs[1][2]['routes']}")
     _print_pe_runs("two-file split route", runs, n_split)
+    return launches, (r1, r2, ri)
+
+
+SERIAL_GZIP_ERROR = (
+    "****Error: multi-host runs need plain or BGZF (block-splittable) "
+    "input; serial gzip inputs must be pre-sharded per host ('{}').\n\n")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dist_start(argv, workdir, n=2):
+    """Start ``python -m sickle_tpu_torch <argv> --dist`` in ``n``
+    processes on the card (gloo on 127.0.0.1); returns (processes, start
+    time) for ``_dist_wait``."""
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.perf_counter()
+    return [subprocess.Popen(
+        [sys.executable, "-m", "sickle_tpu_torch", *argv, "--dist",
+         "--coordinator", f"127.0.0.1:{port}", "--num-processes", str(n),
+         "--process-id", str(rank)], cwd=workdir, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(n)], t0
+
+
+def _dist_run(argv, workdir, n=2, timeout=300):
+    """A --dist cluster run (``_dist_start``) to its end."""
+    return _dist_wait(*_dist_start(argv, workdir, n), argv, timeout)
+
+
+def _dist_wait(procs, t0, argv, timeout=300):
+    """([(rc, stdout, stderr)] by rank, wall seconds from the first start
+    to the last exit).  A process still running at ``timeout`` is killed
+    and fails the phase."""
+    res = []
+    try:
+        for p in procs:
+            try:
+                out, err = p.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                raise SmokeError(f"a --dist process ran past {timeout} s: "
+                                 f"{argv}")
+            res.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return res, time.perf_counter() - t0
+
+
+def _same_concat(parts, whole, block=1 << 24):
+    """The files ``parts``, concatenated in order, equal the file ``whole``."""
+    if sum(os.path.getsize(p) for p in parts) != os.path.getsize(whole):
+        return False
+    with open(whole, "rb") as fw:
+        for p in parts:
+            with open(p, "rb") as fp:
+                while True:
+                    x = fp.read(block)
+                    if not x:
+                        break
+                    if fw.read(len(x)) != x:
+                        return False
+    return True
+
+
+def _dist_check(trim_cuda, cli, device, workdir, tag, argv, out_flags,
+                n_items, unit, launches):
+    """One --dist case: the single-process ``--cuts device`` run in this
+    process, then the same command as a two-process cluster.  The shards
+    concatenated must equal the single run's outputs byte for byte, rank
+    0's stdout its summary exactly, rank 1's stdout must be empty, and
+    each rank's --metrics must show device chunks and H2D bytes."""
+    def outs(kind):
+        return [os.path.join(workdir, f"{tag}.{kind}.{f[1]}.fastq")
+                for f in out_flags]
+
+    def with_outs(kind):
+        return argv + [x for f, o in zip(out_flags, outs(kind))
+                       for x in (f, o)]
+
+    rc, so, _, wall1, met1, la = _run_mode(trim_cuda, cli, with_outs("one"),
+                                           "device", device)
+    for f, v in la.items():
+        launches[f] += v
+    res, wall = _dist_run(with_outs("dist") + ["--cuts", "device",
+                                               "--metrics"], workdir)
+    for rank, (rc, out, err) in enumerate(res):
+        check(rc == 0, f"--dist {tag} rank {rank} exited {rc}: {err[-3000:]}")
+    check(res[0][1] == so, f"--dist {tag} rank 0 stdout differs from the "
+          f"single-process summary:\n{res[0][1]!r}\n{so!r}")
+    check(res[1][1] == "", f"--dist {tag} rank 1 wrote stdout: {res[1][1]!r}")
+    mets = [_metrics(err) for _, _, err in res]
+    for rank, met in enumerate(mets):
+        check(met["chunks"] > 0 and met["h2d_bytes"] > 0,
+              f"--dist {tag} rank {rank} ran no device chunk: {met}")
+    for one, dist in zip(outs("one"), outs("dist")):
+        shards = [f"{dist}.shard{r}" for r in range(2)]
+        check(not os.path.exists(dist) and _same_concat(shards, one),
+              f"--dist {tag}: the shards of {dist} differ from {one}")
+        for path in shards + [one]:
+            os.unlink(path)
+    print(f"dist {tag}: 2 processes {wall:.3f} s wall ({n_items / wall:.0f} "
+          f"{unit}/s, process start-up included), single process "
+          f"{wall1:.3f} s ({n_items / wall1:.0f} {unit}/s); per rank "
+          + "; ".join(f"rank {r}: {m['records']} records, {m['chunks']} "
+                      f"chunks, H2D {m['h2d_bytes']} B, engine wall "
+                      f"{m['wall_ms']} ms" for r, m in enumerate(mets))
+          + "; shards identical, rank 0 summary exact, rank 1 silent",
+          flush=True)
+
+
+def _sharded_check(trim_cuda, device, src):
+    """sharded_cuts_fn over [cuda:0] * 2 and * 3 against the single-device
+    fn on every chunk of the se file (through run_se), each piece launched
+    as one block per shard.  These launches are comparisons, not main-path
+    launches."""
+    import numpy as np
+
+    from sickle_tpu_torch.engine import run_se
+    from sickle_tpu_torch.engine.pipeline import _cuda_cuts_fn
+    from sickle_tpu_torch.ops.trim import TrimParams
+    from sickle_tpu_torch.parallel import sharded_cuts_fn
+
+    p = TrimParams(qual_threshold=20)
+    single = _cuda_cuts_fn(p, device)
+    meshes = {n: sharded_cuts_fn(p, [device] * n) for n in (2, 3)}
+    blocks = {n: 0 for n in meshes}
+    chunks = [0]
+
+    def compare(seq, qual, lengths, qual_clean=False, wire=None):
+        want = single(seq, qual, lengths, qual_clean=qual_clean,
+                      wire=wire).materialize()
+        for n, fn in meshes.items():
+            before = trim_cuda.LAUNCHES
+            got = fn(seq, qual, lengths, qual_clean=qual_clean).materialize()
+            launched = trim_cuda.LAUNCHES - before
+            check(launched >= n and launched % n == 0,
+                  f"sharded fn over {n} launched {launched} blocks")
+            blocks[n] += launched
+            for a, b in zip(got, want):
+                check(np.array_equal(a, b),
+                      f"sharded fn over [cuda:0] * {n} != single-device fn "
+                      f"on chunk {chunks[0]}")
+        chunks[0] += 1
+        return want
+
+    compare.prepare = single.prepare
+    t0 = time.perf_counter()
+    with open(src, "rb") as fin, open(os.devnull, "wb") as fout:
+        run_se(fin, fout, p, cuts_fn=compare)
+    print(f"sharded fn: [cuda:0] * 2 and * 3 equal the single-device fn on "
+          f"all {chunks[0]} chunks of the se file ({blocks[2]} and "
+          f"{blocks[3]} block launches; {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+
+def phase_dist(trim_cuda, card, device, workdir, src, pe_inputs):
+    """Phase 5: --dist across two processes on the card, --devices 2 on a
+    one-card machine, and the sharded fn over one card's blocks.  The
+    inputs are phase 3's se file and phase 4's pe files, plus a BGZF and
+    a serial-gzip copy of part of the se file."""
+    import gzip
+
+    import torch
+
+    from sickle_tpu_torch import cli
+    from sickle_tpu_torch.io.compression import BgzfWriter
+
+    launches = {"raw": 0, "band": 0, "rank": 0}
+    n_se = N_UNIFORM + N_RAGGED
+    se = ["se", "-f", src, "-t", "sanger", "-q", "20"]
+    _dist_check(trim_cuda, cli, device, workdir, "se", se, ["-o"], n_se,
+                "reads", launches)
+
+    # --devices 2 with one card: clamped to the one device, same bytes
+    one = os.path.join(workdir, "devices1.fastq")
+    two = os.path.join(workdir, "devices2.fastq")
+    for out, extra in ((one, []), (two, ["--devices", "2"])):
+        _, so, _, wall, _, la = _run_mode(trim_cuda, cli, se + ["-o", out]
+                                          + extra, "device", device)
+        for f, v in la.items():
+            launches[f] += v
+    check(_same_file(one, two), "--devices 2 output differs on one card")
+    print(f"--devices 2 on {torch.cuda.device_count()} card(s): clamped, output "
+          f"identical ({wall:.3f} s wall)", flush=True)
+    for path in (one, two):
+        os.unlink(path)
+    _sharded_check(trim_cuda, device, src)
+
+    # a BGZF copy of the first N_DIST_BGZF reads (sharded in uncompressed
+    # space through its block index)
+    gz = os.path.join(workdir, "reads.fastq.gz")
+    t0 = time.perf_counter()
+    with open(src, "rb") as f:
+        head = b"".join(f.readline() for _ in range(4 * N_DIST_BGZF))
+    w = BgzfWriter(gz)
+    w.write(head)
+    w.close()
+    print(f"dist BGZF input: {N_DIST_BGZF} reads, {len(head)} bytes -> "
+          f"{os.path.getsize(gz)} bytes, written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # serial gzip cannot be split: both ranks exit 1 with the JAX text.
+    # This cluster runs while the BGZF case does (start-up is most of
+    # either's wall).
+    serial = os.path.join(workdir, "serial.fastq.gz")
+    with gzip.open(serial, "wb", compresslevel=1) as g:
+        g.write(head[: len(head) // 50])
+    serial_argv = ["se", "-f", serial, "-t", "sanger", "-o",
+                   os.path.join(workdir, "serial.out.fastq"), "--cuts",
+                   "device"]
+    started = _dist_start(serial_argv, workdir)
+    try:
+        _dist_check(trim_cuda, cli, device, workdir, "se_bgzf",
+                    ["se", "-f", gz, "-t", "sanger", "-q", "20"], ["-o"],
+                    N_DIST_BGZF, "reads", launches)
+    finally:
+        res, _ = _dist_wait(*started, serial_argv)
+    for rank, (rc, out, err) in enumerate(res):
+        check(rc == 1 and out == "" and SERIAL_GZIP_ERROR.format(serial) in err,
+              f"serial gzip --dist rank {rank}: rc {rc}, {err[-2000:]}")
+    print("dist serial gzip (alongside the BGZF case): both ranks exit 1 "
+          "with the JAX package's text", flush=True)
+    for path in (gz, serial, src):
+        os.unlink(path)
+
+    # pe: phase 4's two-file 2x150 and interleaved ragged 30-160 (-M)
+    r1, r2, ri = pe_inputs
+    _dist_check(trim_cuda, cli, device, workdir, "pe_two_file",
+                ["pe", "-f", r1, "-r", r2, "-t", "sanger", "-q", "20"],
+                ["-o", "-p", "-s"], N_PE_PAIRS, "pairs", launches)
+    _dist_check(trim_cuda, cli, device, workdir, "pe_interleaved_M",
+                ["pe", "-c", ri, "-t", "sanger"], ["-M"], N_PE_RAGGED,
+                "pairs", launches)
+    for path in (r1, r2, ri):
+        os.unlink(path)
+    print(f"card: {card}", flush=True)
     return launches
 
 
@@ -821,8 +1082,12 @@ def main() -> int:
     errs, times = phase_kernels(torch, trim_cuda, dev)
     workdir = tempfile.mkdtemp(prefix="sickle_smoke_")
     try:
-        launches = phase_e2e(trim_cuda, card, dev, workdir)
-        for form, n in phase_pe(trim_cuda, card, dev, workdir).items():
+        launches, se_src = phase_e2e(trim_cuda, card, dev, workdir)
+        pe_launches, pe_inputs = phase_pe(trim_cuda, card, dev, workdir)
+        for form, n in pe_launches.items():
+            launches[form] += n
+        for form, n in phase_dist(trim_cuda, card, dev, workdir, se_src,
+                                  pe_inputs).items():
             launches[form] += n
     finally:
         shutil.rmtree(workdir, ignore_errors=True)

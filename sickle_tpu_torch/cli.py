@@ -10,10 +10,13 @@ hybrid router (``engine/hybrid.py``) over the CUDA cuts kernel on that
 device, with the C++ host kernel taking overflow and stalls; ``device``
 runs the CUDA kernel alone; ``host`` the indexed C++ host kernel alone
 (rows are never packed).  ``--checkpoint`` makes se and pe runs
-restartable.
-
-Not ported yet, and refused with exit code 1 rather than ignored:
-``--dist`` and ``--devices`` above 1.
+restartable.  ``--devices N`` shards each batch row-wise over N local
+GPUs (``parallel/mesh.py``); ``--dist`` makes the run one process of a
+gloo process group (``parallel/dist.py``) that trims its record-aligned
+shard of the input into ``<output>.shard<i>``, rank 0 printing the
+merged summary.  Each process of a ``--dist`` run uses the device it is
+given (``cuda``: the current device; pin one GPU per process with
+``CUDA_VISIBLE_DEVICES``).
 """
 
 from __future__ import annotations
@@ -38,6 +41,103 @@ from .io import native
 from .io.compression import open_input, open_output
 from .oracle import PECounters, SECounters, SickleError
 from .ops import TrimParams
+
+
+def _merge_counters(counters):
+    """Sum counters across processes in a --dist run (one gloo
+    all_reduce); unchanged with one process.  The printed summary then
+    reports GLOBAL totals.  None (the error written to stderr) when a
+    peer process left the run before the merge: gloo reports the closed
+    connection instead of waiting out its timeout."""
+    from .parallel.dist import allreduce_host_counters
+
+    se = isinstance(counters, SECounters)
+    vals = ([counters.total, counters.kept, counters.discarded] if se else [
+        counters.total, counters.kept_p, counters.kept_s1, counters.kept_s2,
+        counters.discard_p, counters.discard_s1, counters.discard_s2,
+    ])
+    try:
+        vals = allreduce_host_counters(vals)
+    except RuntimeError as e:
+        first = str(e).strip().splitlines()[0] if str(e).strip() else ""
+        sys.stderr.write("****Error: the --dist run lost a peer process "
+                         f"before the counter merge ({first}).\n\n")
+        return None
+    return SECounters(*vals) if se else PECounters(*vals)
+
+
+class _Dist:
+    """Multi-host run context (--dist).
+
+    Joins the gloo process group (``parallel.dist.init_distributed``),
+    after which the CLI shards plain and BGZF inputs by record-aligned
+    byte ranges (parallel.dist), gives each process its own
+    ``<output>.shard<i>`` (concatenating shards in shard order reproduces
+    the single-process bytes; gzip shards concatenate into a valid
+    multi-member stream too), and prints the merged GLOBAL summary on
+    rank 0 only.
+    """
+
+    def __init__(self, enabled: bool, coordinator: Optional[str],
+                 num_processes: Optional[int], process_id: Optional[int]):
+        self.pid, self.nproc = 0, 1
+        if not enabled:
+            return
+        import torch.distributed as dist
+
+        from .parallel.dist import init_distributed
+
+        init_distributed(coordinator, num_processes, process_id)
+        self.pid = dist.get_rank()
+        self.nproc = dist.get_world_size()
+
+    @property
+    def active(self) -> bool:
+        return self.nproc > 1
+
+    def shard_path(self, path: Optional[str]) -> Optional[str]:
+        if path is None or not self.active:
+            return path
+        return f"{path}.shard{self.pid}"
+
+    @property
+    def trace_name(self) -> str:
+        """--profile's file in the trace directory: one per process."""
+        return f"trace.rank{self.pid}.json" if self.active else "trace.json"
+
+    def check_splittable(self, *paths) -> Optional[str]:
+        """Error text if any input cannot be byte-split across hosts.
+
+        Plain files split by record-aligned byte ranges; BGZF gzip
+        (blocked — bgzip/samtools output and this framework's own ``-g``
+        output) splits in uncompressed space via its block index.  Only
+        SERIAL gzip is rejected: it has no splittable address space.
+        """
+        if not self.active:
+            return None
+        from .io.compression import BgzfReader
+
+        for fp in paths:
+            if fp is None:
+                continue
+            try:
+                with open(fp, "rb") as f:
+                    if f.read(2) != b"\x1f\x8b":
+                        continue
+                if native.available() and BgzfReader.try_open(fp) is not None:
+                    continue  # block-splittable; sharded in u-space
+                return (
+                    "****Error: multi-host runs need plain or BGZF "
+                    "(block-splittable) input; serial gzip inputs must "
+                    f"be pre-sharded per host ('{fp}').\n\n"
+                )
+            except FileNotFoundError:
+                pass  # open_input reports missing files with parity text
+            # other OSErrors (permissions, IO) propagate: downstream opens
+            # would hit them anyway, and swallowing here would silently
+            # disable the splittability check
+        return None
+
 
 DEFAULT_RECORDS_PER_CHUNK = 1 << 16
 
@@ -201,22 +301,9 @@ def _records_per_chunk(batch_mb: Optional[int]) -> int:
 CUTS_MODES = ("auto", "hybrid", "device", "host")
 
 
-def _not_ported(what: str) -> int:
-    sys.stderr.write(
-        f"****Error: {what} is not yet ported to the PyTorch/CUDA package "
-        "(use python -m sickle_tpu).\n\n")
-    return 1
-
-
-def _refused(dist_on: bool, devices: Optional[int], cuts_mode: str,
-             device: torch.device) -> Optional[int]:
-    """Exit code for an option set this package cannot run yet (or a
-    CUDA device that is absent), else None.  No CPU fallback."""
-    # (--coordinator/--num-processes/--process-id only matter with --dist)
-    if dist_on:
-        return _not_ported("--dist")
-    if devices is not None and devices > 1:
-        return _not_ported("--devices above 1")
+def _refused(cuts_mode: str, device: torch.device) -> Optional[int]:
+    """Exit code 1 when the run needs a CUDA device that is absent, else
+    None.  No CPU fallback."""
     if (cuts_mode != "host" and device.type == "cuda"
             and not torch.cuda.is_available()):
         sys.stderr.write(
@@ -230,7 +317,7 @@ _ACTIVE_CUTS_FN = None  # last built cuts fn; its workers stop in _finish
 
 
 def _build_cuts_fn(params: TrimParams, mode: str, device: torch.device,
-                   cfg: EngineConfig):
+                   cfg: EngineConfig, devices: Optional[int] = None):
     """The cuts fn for ``--cuts`` (the JAX package's ``default_cuts_fn``):
 
     * host: the hybrid fn with no device (every chunk takes the indexed
@@ -240,6 +327,13 @@ def _build_cuts_fn(params: TrimParams, mode: str, device: torch.device,
     * auto/hybrid: the hybrid router over the CUDA kernel when the native
       library is there (``auto`` unless ``SICKLE_TPU_HYBRID`` turns it
       off), else the CUDA kernel alone.
+
+    ``devices`` (``--devices``, default: all) shards the device step over
+    ``n = min(devices or count, count)`` local devices, ``count`` being
+    ``torch.cuda.device_count()`` on a CUDA device; a CPU device has as
+    many copies as asked for (one by default), so the shard path runs
+    without a card.  For ``n > 1`` the chunk size is rounded up to a
+    multiple of ``max(n, 8)`` (``cfg.records_per_chunk``).
 
     A CPU ``device`` runs the kernel's plain PyTorch version.  Building
     the device fn builds the kernel library and creates the CUDA context,
@@ -255,9 +349,20 @@ def _build_cuts_fn(params: TrimParams, mode: str, device: torch.device,
 
             fn = host_cuts_fn(params)
     else:
-        from .engine.pipeline import _cuda_cuts_fn
+        count = (torch.cuda.device_count() if device.type == "cuda"
+                 else devices or 1)
+        n = min(devices or count, count)
+        if n <= 1:
+            from .engine.pipeline import _cuda_cuts_fn
 
-        fn = _cuda_cuts_fn(params, device, cfg.slice_rows)
+            fn = _cuda_cuts_fn(params, device, cfg.slice_rows)
+        else:
+            from .parallel import data_mesh, sharded_cuts_fn
+
+            mult = max(n, 8)
+            cfg.records_per_chunk = -(-cfg.records_per_chunk // mult) * mult
+            fn = sharded_cuts_fn(params, data_mesh(n, device.type),
+                                 cfg.slice_rows)
         if mode != "device" and native.available() and hybrid_enabled(
                 True if mode == "hybrid" else None):
             fn = HybridCutsFn(params, fn)
@@ -295,19 +400,26 @@ _GZIP_CHECKPOINT_ERROR = (
 
 
 def _checkpoint_path(base: str) -> str:
-    """The checkpoint sidecar's path.  Single-host runs use ``base``
-    itself; a multi-host run (``--dist``, not ported yet) would give each
-    host its own file, since input shards advance independently."""
+    """Per-process checkpoint file in multi-host runs (independent input
+    shards advance independently); ``base`` itself with one process."""
+    from .parallel.dist import _rank_and_size
+
+    rank, size = _rank_and_size()
+    if size > 1:
+        return f"{base}.host{rank}"
     return base
 
 
 class _Profile:
     """--profile DIR: a torch.profiler trace of the run, written as
-    ``DIR/trace.json`` (Chrome trace format)."""
+    ``DIR/<name>`` (Chrome trace format): ``trace.json``, or
+    ``trace.rank<i>.json`` in each process of a --dist run."""
 
-    def __init__(self, trace_dir: Optional[str], device: torch.device):
+    def __init__(self, trace_dir: Optional[str], device: torch.device,
+                 name: str = "trace.json"):
         self.trace_dir = trace_dir
         self.device = device
+        self.name = name
         self._prof = None
 
     def __enter__(self):
@@ -326,7 +438,7 @@ class _Profile:
             self._prof.__exit__(*exc)
             os.makedirs(self.trace_dir, exist_ok=True)
             self._prof.export_chrome_trace(
-                os.path.join(self.trace_dir, "trace.json"))
+                os.path.join(self.trace_dir, self.name))
         return False
 
 
@@ -348,7 +460,7 @@ def se_main(argv: List[str], device: torch.device) -> int:
     qualtype = None
     q_thresh, l_thresh = 20, 20
     no_five = trunc_n = gzip_out = quiet = debug = strict = False
-    dist_on = False
+    dist_on, coordinator, n_procs, proc_id = False, None, None, None
     cuts_mode = "auto"
     batch_mb = None
     devices = None
@@ -388,6 +500,12 @@ def se_main(argv: List[str], device: torch.device) -> int:
                 return 1
         elif o == "--dist":
             dist_on = True
+        elif o == "--coordinator":
+            coordinator = a
+        elif o == "--num-processes":
+            n_procs = int(a)
+        elif o == "--process-id":
+            proc_id = int(a)
         elif o in ("-n", "--discard-n"):
             trunc_n = True
         elif o in ("-g", "--gzip-output"):
@@ -425,7 +543,7 @@ def se_main(argv: List[str], device: torch.device) -> int:
     if infn == outfn:
         sys.stderr.write("****Error: Input file is same as output file.\n\n")
         return 1
-    rc = _refused(dist_on, devices, cuts_mode, device)
+    rc = _refused(cuts_mode, device)
     if rc is not None:
         return rc
 
@@ -439,13 +557,24 @@ def se_main(argv: List[str], device: torch.device) -> int:
         compat=compat,
         strict=strict,
     )
+    dist = _Dist(dist_on, coordinator, n_procs, proc_id)
     cfg = EngineConfig(records_per_chunk=_records_per_chunk(batch_mb),
                        compat=compat)
-    cuts_fn = _build_cuts_fn(params, cuts_mode, device, cfg)
+    cuts_fn = _build_cuts_fn(params, cuts_mode, device, cfg, devices)
     if metrics_on:
         from .utils.metrics import Metrics
 
         cfg.metrics = Metrics()
+    in_off = 0
+    if dist.active:
+        err = dist.check_splittable(infn)
+        if err:
+            sys.stderr.write(err)
+            return 1
+        from .parallel.dist import shard_record_ranges
+
+        in_off, cfg.byte_limit = shard_record_ranges(infn, dist.nproc)[dist.pid]
+        outfn = dist.shard_path(outfn)
 
     counters_in = None
     ck = None
@@ -462,6 +591,8 @@ def se_main(argv: List[str], device: torch.device) -> int:
     _reader_msg(debug, compat, infn)
     try:
         with open_input(infn) as fin:
+            if in_off:
+                fin.seek(in_off)
             if ck is not None:
                 out = _open_resumable(outfn, gzip_out)
                 if st is not None:
@@ -475,7 +606,7 @@ def se_main(argv: List[str], device: torch.device) -> int:
             else:
                 out = open_output(outfn, gzip_out)
             try:
-                with _Profile(profile, device):
+                with _Profile(profile, device, dist.trace_name):
                     counters = run_se(fin, out, params, cfg=cfg,
                                       cuts_fn=cuts_fn, counters=counters_in)
             finally:
@@ -490,7 +621,10 @@ def se_main(argv: List[str], device: torch.device) -> int:
 
     if cfg.metrics is not None:
         cfg.metrics.report()
-    if not quiet:
+    counters = _merge_counters(counters)
+    if counters is None:
+        return 1
+    if not quiet and dist.pid == 0:
         sys.stdout.write(
             f"\nSE input file: {infn}\n\n"
             f"Total FastQ records: {counters.total}\n"
@@ -522,7 +656,7 @@ def pe_main(argv: List[str], device: torch.device) -> int:
     qualtype = None
     q_thresh, l_thresh = 20, 20
     no_five = trunc_n = gzip_out = quiet = debug = strict = False
-    dist_on = False
+    dist_on, coordinator, n_procs, proc_id = False, None, None, None
     cuts_mode = "auto"
     batch_mb = None
     devices = None
@@ -575,6 +709,12 @@ def pe_main(argv: List[str], device: torch.device) -> int:
                 return 1
         elif o == "--dist":
             dist_on = True
+        elif o == "--coordinator":
+            coordinator = a
+        elif o == "--num-processes":
+            n_procs = int(a)
+        elif o == "--process-id":
+            proc_id = int(a)
         elif o in ("-n", "--truncate-n"):
             trunc_n = True
         elif o in ("-g", "--gzip-output"):
@@ -639,7 +779,7 @@ def pe_main(argv: List[str], device: torch.device) -> int:
                 PE_USAGE, 1,
                 "****Error: The -f option cannot be used in combination with -c, -m, or -M.",
             )
-    rc = _refused(dist_on, devices, cuts_mode, device)
+    rc = _refused(cuts_mode, device)
     if rc is not None:
         return rc
 
@@ -652,13 +792,36 @@ def pe_main(argv: List[str], device: torch.device) -> int:
         compat=compat,
         strict=strict,
     )
+    dist = _Dist(dist_on, coordinator, n_procs, proc_id)
     cfg = EngineConfig(records_per_chunk=_records_per_chunk(batch_mb),
                        compat=compat)
-    cuts_fn = _build_cuts_fn(params, cuts_mode, device, cfg)
+    cuts_fn = _build_cuts_fn(params, cuts_mode, device, cfg, devices)
     if metrics_on:
         from .utils.metrics import Metrics
 
         cfg.metrics = Metrics()
+    in_off = in_off2 = 0
+    if dist.active:
+        err = dist.check_splittable(infnc, infn, infn2)
+        if err:
+            sys.stderr.write(err)
+            return 1
+        if infnc:
+            from .parallel.dist import shard_record_ranges
+
+            in_off, cfg.byte_limit = shard_record_ranges(
+                infnc, dist.nproc, align=2
+            )[dist.pid]
+        else:
+            from .parallel.dist import shard_paired_ranges
+
+            (r1, r2) = shard_paired_ranges(infn, infn2, dist.nproc)[dist.pid]
+            in_off, cfg.byte_limit = r1
+            in_off2, cfg.byte_limit2 = r2
+        outfn = dist.shard_path(outfn)
+        outfn2 = dist.shard_path(outfn2)
+        outfnc = dist.shard_path(outfnc)
+        sfn = dist.shard_path(sfn)
 
     counters_in = None
     ck = None
@@ -698,10 +861,12 @@ def pe_main(argv: List[str], device: torch.device) -> int:
         if infnc:
             _reader_msg(debug, compat, infnc)
             with open_input(infnc) as fin:
+                if in_off:
+                    fin.seek(in_off)
                 o1 = out_stream(outfnc)
                 so = out_stream(sfn) if sfn else None
                 apply_resume()
-                with _Profile(profile, device):
+                with _Profile(profile, device, dist.trace_name):
                     counters = run_pe(
                         fin, None, interleaved=True,
                         out1=o1,
@@ -714,11 +879,15 @@ def pe_main(argv: List[str], device: torch.device) -> int:
             _reader_msg(debug, compat, infn)
             _reader_msg(debug, compat, infn2)
             with open_input(infn) as f1, open_input(infn2) as f2:
+                if in_off:
+                    f1.seek(in_off)
+                if in_off2:
+                    f2.seek(in_off2)
                 o1 = out_stream(outfn)
                 o2 = out_stream(outfn2)
                 so = out_stream(sfn)
                 apply_resume()
-                with _Profile(profile, device):
+                with _Profile(profile, device, dist.trace_name):
                     counters = run_pe(
                         f1, f2, interleaved=False,
                         out1=o1,
@@ -740,7 +909,10 @@ def pe_main(argv: List[str], device: torch.device) -> int:
 
     if cfg.metrics is not None:
         cfg.metrics.report()
-    if not quiet:
+    counters = _merge_counters(counters)
+    if counters is None:
+        return 1
+    if not quiet and dist.pid == 0:
         c = counters
         if infn and infn2:
             sys.stdout.write(f"\nPE forward file: {infn}\nPE reverse file: {infn2}\n")
@@ -792,13 +964,19 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
 
 
 def _finish(rc: int) -> int:
-    """Stop the hybrid fn's workers before interpreter teardown.  If a
-    worker is WEDGED in a device call that never returns, exit hard with
-    the real return code: all user-visible output is already flushed."""
+    """Stop the hybrid fn's workers, then leave the --dist process group,
+    before interpreter teardown.  If a worker is WEDGED in a device call
+    that never returns, exit hard with the real return code: all
+    user-visible output is already flushed."""
     global _ACTIVE_CUTS_FN
     fn, _ACTIVE_CUTS_FN = _ACTIVE_CUTS_FN, None
     close = getattr(fn, "close", None)
-    if close is not None and close() is False:
+    closed = close is None or close() is not False
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+    if not closed:
         sys.stdout.flush()
         sys.stderr.flush()
         os._exit(rc)

@@ -20,6 +20,7 @@ host kernel are parsed but never copied into row matrices.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io as _io
 import mmap as _mmap
@@ -280,18 +281,26 @@ class EngineConfig:
     # deterministic output makes "records done" a complete restart state
     skip_records: int = 0
     progress_cb: Optional[Callable[[object], None]] = None
+    # multi-host input sharding: process at most this many bytes from the
+    # stream's starting position (record-aligned by the sharder;
+    # parallel.dist.shard_record_ranges).  byte_limit2 bounds pe's second
+    # input file.  None = to EOF.
+    byte_limit: Optional[int] = None
+    byte_limit2: Optional[int] = None
     # per-chunk stage timing collector (SURVEY.md §5.1); CLI --metrics.
     # None = zero-overhead no-op.
     metrics: Optional[Metrics] = None
 
 
-def _mmap_input(stream: BinaryIO):
+def _mmap_input(stream: BinaryIO, byte_limit: Optional[int] = None):
     """``(uint8 view of the readable span, start offset)`` for a plain
     regular-file stream, else ``None``.
 
     Enables the zero-copy producer: records are parsed straight out of
     the mapped pages (one scan, no chunk byte copies).  Gzip streams,
     pipes, and in-memory streams fall back to the chunked reader.
+    ``byte_limit`` bounds the span at ``tell() + byte_limit`` (multi-host
+    shard ranges).
     """
     raw = stream.raw if isinstance(stream, _io.BufferedReader) else stream
     if not isinstance(raw, _io.FileIO) or "r" not in getattr(raw, "mode", ""):
@@ -303,7 +312,33 @@ def _mmap_input(stream: BinaryIO):
         mm = _mmap.mmap(stream.fileno(), st.st_size, access=_mmap.ACCESS_READ)
     except (OSError, ValueError, AttributeError):
         return None
-    return np.frombuffer(mm, dtype=np.uint8), stream.tell()
+    arr = np.frombuffer(mm, dtype=np.uint8)
+    off = stream.tell()
+    if byte_limit is not None:
+        arr = arr[: min(arr.size, off + byte_limit)]
+    return arr, off
+
+
+class _LimitedStream:
+    """Read-only view of at most ``limit`` bytes from ``stream``'s current
+    position (multi-host shard bound for non-mmap inputs)."""
+
+    def __init__(self, stream: BinaryIO, limit: int):
+        self._stream = stream
+        self._left = limit
+
+    def read(self, n: int = -1) -> bytes:
+        if self._left <= 0:
+            return b""
+        if n is None or n < 0 or n > self._left:
+            n = self._left
+        data = self._stream.read(n)
+        self._left -= len(data)
+        return data
+
+
+def _bounded(stream: BinaryIO, byte_limit: Optional[int]):
+    return stream if byte_limit is None else _LimitedStream(stream, byte_limit)
 
 
 class _RefBuf:
@@ -344,8 +379,9 @@ class _BgzfSource:
     # throttle the producer (each ~24 MiB window usually backs one chunk)
     MAX_BUFFERS = 6
 
-    def __init__(self, reader, stop: threading.Event):
+    def __init__(self, reader, byte_limit: Optional[int], stop: threading.Event):
         self.r = reader
+        self.remaining = byte_limit
         self._free: queue.Queue = queue.Queue()
         self._made = 0
         self._stop = stop
@@ -371,11 +407,13 @@ class _BgzfSource:
 
     def refill(self, min_total: int = 0) -> bool:
         """Extend the live span with the next inflate window.  False at
-        EOF.  Appends IN PLACE when the current buffer has room
+        EOF/limit.  Appends IN PLACE when the current buffer has room
         (bytes before ``end`` are immutable, so pinned chunks are
         unaffected); rotates to a fresh buffer — sized for
         ``min_total`` so a multi-window chunk rotates once, not per
         window — only when capacity runs out."""
+        if self.remaining is not None and self.remaining <= 0:
+            return False
         need = self.r.peek_window_bytes()
         if need == 0:
             return False
@@ -395,12 +433,17 @@ class _BgzfSource:
         n = self.r.inflate_into(self.cur.arr, self.end)
         if n <= 0:
             return False
+        if self.remaining is not None:
+            n = min(n, self.remaining)
+            self.remaining -= n
         self.end += n
         return True
 
     def exhausted(self) -> bool:
         """True when no further bytes can be produced (the parser may
         then apply EOF trailing-line semantics to the current span)."""
+        if self.remaining is not None and self.remaining <= 0:
+            return True
         return self.r.peek_window_bytes() == 0
 
     def close(self):
@@ -409,11 +452,11 @@ class _BgzfSource:
             self.cur = None
 
 
-def _bgzf_source(stream, stop) -> Optional[_BgzfSource]:
+def _bgzf_source(stream, byte_limit, stop) -> Optional[_BgzfSource]:
     from ..io.compression import BgzfReader
 
     if isinstance(stream, BgzfReader) and native.available():
-        return _BgzfSource(stream, stop)
+        return _BgzfSource(stream, byte_limit, stop)
     return None
 
 
@@ -546,6 +589,17 @@ def _cuda_cuts_fn(params: TrimParams, device, slice_rows: int = 1 << 16) -> Cuts
       (``_decode_codes``); rows with ``L >= MAX_PACKED_L`` come back as
       the unpacked ``[3, B]`` result.
 
+    ``device`` may also be a list of devices: the step is then sharded
+    row-wise over them (``parallel.mesh.sharded_cuts_fn``), with the JAX
+    package's mesh rules: ``slice_rows`` is rounded up to a multiple of
+    the device count ``n``; a chunk whose row count is not a multiple of
+    ``n`` is padded with length-0 rows (results are cut back to the
+    chunk's rows); a chunk that is not a whole number of slices ships raw
+    rows with explicit lengths, as one piece.  Each piece is split into
+    ``n`` contiguous row blocks, block ``k`` copied to and launched on
+    device ``k`` (on its current stream, under ``torch.cuda.device``),
+    with its own pinned D2H and event; ``last_h2d`` sums the blocks.
+
     The H2D copies read the packer's pageable workspace (or the wire
     arrays): such a copy returns once the source bytes are staged, so the
     workspace may be recycled as soon as the call returns.  On a CUDA
@@ -555,12 +609,15 @@ def _cuda_cuts_fn(params: TrimParams, device, slice_rows: int = 1 << 16) -> Cuts
     """
     from ..ops.trim_cuda import build, trim_cuts, trim_cuts_wire
 
-    device = torch.device(device)
-    if device.type == "cuda":
-        build()
-        torch.empty(1, device=device)
+    mesh = isinstance(device, (list, tuple))
+    devices = [torch.device(d) for d in (device if mesh else [device])]
+    n_mesh = len(devices)
+    for d in set(devices):
+        if d.type == "cuda":
+            build()
+            torch.empty(1, device=d)
     needs_seq = params.trunc_n
-    SL = slice_rows
+    SL = -(-slice_rows // n_mesh) * n_mesh
     enc_offset, enc_qmin, enc_qmax = QUALITY_CONSTANTS[params.qualtype]
     no_planes = bool(os.environ.get("SICKLE_TPU_NO_PLANES"))
 
@@ -579,7 +636,8 @@ def _cuda_cuts_fn(params: TrimParams, device, slice_rows: int = 1 << 16) -> Cuts
         * None — raw u8 rows.
         """
         if (needs_seq or no_planes or not qual_clean or B % 8
-                or qual.shape[1] % 8 or qual.shape[1] >= MAX_PACKED_L):
+                or qual.shape[1] % 8 or qual.shape[1] >= MAX_PACKED_L
+                or (mesh and B % SL)):
             return None
         levels = qual_levels(qual)
         if levels.size == 0:
@@ -619,9 +677,9 @@ def _cuda_cuts_fn(params: TrimParams, device, slice_rows: int = 1 << 16) -> Cuts
         plan = _wire_plan(qual, packed.qual_clean, qual.shape[0])
         packed.wire = None if plan is None else (plan, _wire_pieces(qual, plan))
 
-    def to_device(rows: np.ndarray) -> torch.Tensor:
+    def to_device(rows: np.ndarray, d: torch.device) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(rows)).to(
-            device, non_blocking=True)
+            d, non_blocking=True)
 
     def fetch(codes: torch.Tensor):
         if codes.device.type != "cuda":
@@ -634,8 +692,20 @@ def _cuda_cuts_fn(params: TrimParams, device, slice_rows: int = 1 << 16) -> Cuts
 
     def fn(seq, qual, lengths, qual_clean=False, wire=None):
         lengths = np.asarray(lengths)
-        B, L = qual.shape
-        explicit = not qual_clean or B % 8 != 0
+        n_rows = B = qual.shape[0]
+        if B % n_mesh:
+            # pad rows so the devices split the chunk evenly; padding rows
+            # have length 0 and are discarded
+            pad = n_mesh - B % n_mesh
+            qual = np.pad(qual, ((0, pad), (0, 0)))
+            if needs_seq:
+                seq = np.pad(seq, ((0, pad), (0, 0)))
+            lengths = np.pad(lengths, (0, pad))
+            B += pad
+            wire = None
+        L = qual.shape[1]
+        whole = mesh and B % SL != 0  # ships as one piece
+        explicit = not qual_clean or B % 8 != 0 or whole
         # uniform-length chunk (incl. length-0 padding rows): one window
         mx = int(lengths.max()) if lengths.size else 0
         uniform = (mx > 0 and int(np.count_nonzero(
@@ -658,24 +728,34 @@ def _cuda_cuts_fn(params: TrimParams, device, slice_rows: int = 1 << 16) -> Cuts
                 kw, side = dict(bias=arg - enc_offset), 4
         parts = []
         h2d = 0
-        for k, (i, n) in enumerate(_pieces(B)):
+        for k, (i, n) in enumerate([(0, B)] if whole else _pieces(B)):
             if plan is not None:
-                codes = trim_cuts_wire(to_device(fields[k]), p, L, params,
-                                       uniform_len=ul, **kw)
-                h2d += fields[k].nbytes + side
-            else:
-                q = to_device(qual[i : i + n])
-                s = to_device(seq[i : i + n]) if needs_seq else None
-                lens = (to_device(lengths[i : i + n].astype(np.int32, copy=False))
-                        if explicit else None)
-                h2d += n * L * (2 if needs_seq else 1) + (4 * n if explicit else 0)
-                codes = trim_cuts(q, params, lengths=lens, seq=s, uniform_len=ul)
-            parts.append(fetch(codes))
+                h2d += side
+            blk = n // n_mesh
+            for j, d in enumerate(devices):
+                lo, hi = i + j * blk, i + (j + 1) * blk
+                with (torch.cuda.device(d) if d.type == "cuda"
+                      else contextlib.nullcontext()):
+                    if plan is not None:
+                        rows = fields[k][j * blk : (j + 1) * blk]
+                        codes = trim_cuts_wire(to_device(rows, d), p, L,
+                                               params, uniform_len=ul, **kw)
+                        h2d += rows.nbytes
+                    else:
+                        q = to_device(qual[lo:hi], d)
+                        s = to_device(seq[lo:hi], d) if needs_seq else None
+                        lens = (to_device(lengths[lo:hi].astype(
+                            np.int32, copy=False), d) if explicit else None)
+                        h2d += (blk * L * (2 if needs_seq else 1)
+                                + (4 * blk if explicit else 0))
+                        codes = trim_cuts(q, params, lengths=lens, seq=s,
+                                          uniform_len=ul)
+                    parts.append(fetch(codes))
         fn.last_h2d = h2d
-        return _PendingCodes(parts)
+        return _PendingCodes(parts, n_rows)
 
     fn.prepare = prepare
-    fn.device = device
+    fn.device = devices[0]  # the hybrid router's worker runs under it
     fn.lazy = True  # returns _PendingCodes; fetch deferred to the window
     fn.last_h2d = 0
     return fn
@@ -683,12 +763,14 @@ def _cuda_cuts_fn(params: TrimParams, device, slice_rows: int = 1 << 16) -> Cuts
 
 class _PendingCodes:
     """One chunk's device results, fetch deferred: the engine dispatches
-    chunk i+1's H2D and launches before it waits on chunk i's events."""
+    chunk i+1's H2D and launches before it waits on chunk i's events.
+    ``n``: the chunk's rows (rows past it are mesh padding)."""
 
-    __slots__ = ("parts",)
+    __slots__ = ("parts", "n")
 
-    def __init__(self, parts: list):
-        self.parts = parts  # [(host codes, CUDA event or None)]
+    def __init__(self, parts: list, n: int):
+        self.parts = parts  # [(host codes, CUDA event or None)], in row order
+        self.n = n
 
     def materialize(self):
         outs = []
@@ -697,9 +779,9 @@ class _PendingCodes:
                 done.synchronize()
                 host = host.numpy()
             outs.append(host)
-        if len(outs) == 1:
-            return _decode_codes(outs[0])
-        return _decode_codes(np.concatenate(outs, axis=outs[0].ndim - 1))
+        arr = (outs[0] if len(outs) == 1
+               else np.concatenate(outs, axis=outs[0].ndim - 1))
+        return _decode_codes(arr[..., : self.n])
 
 
 def _decode_codes(arr: np.ndarray):
@@ -983,7 +1065,8 @@ def run_se(
     outbuf = _outbuf_checkout()
     mtr = cfg.metrics
 
-    mapped = _mmap_input(in_stream) if native.available() else None
+    mapped = (_mmap_input(in_stream, cfg.byte_limit)
+              if native.available() else None)
 
     def producer():
         if mapped is not None:
@@ -1018,7 +1101,7 @@ def run_se(
                     prep(packed)  # wire prep off the dispatch thread
                 pipe.pack_q.put(packed)
             return
-        src = (_bgzf_source(in_stream, pipe.stop)
+        src = (_bgzf_source(in_stream, cfg.byte_limit, pipe.stop)
                if cfg.skip_records == 0 else None)
         if src is not None:
             # zero-copy gzip: BGZF windows inflate straight into the pack
@@ -1034,7 +1117,7 @@ def run_se(
                           prep_put, batch_bytes=cfg.bytes_per_batch)
             return
         for chunk in iter_record_chunks(
-            in_stream,
+            _bounded(in_stream, cfg.byte_limit),
             lambda: _effective_chunk(cfg, state["l_max"])[0],
             skip_records=cfg.skip_records,
             max_chunk_bytes=3 * cfg.bytes_per_batch,
@@ -1241,7 +1324,8 @@ def run_pe(
 
     def producer():
         if interleaved:
-            mapped = _mmap_input(in1) if native.available() else None
+            mapped = (_mmap_input(in1, cfg.byte_limit)
+                      if native.available() else None)
             if mapped is not None:  # zero-copy (see run_se)
                 arr, off = mapped
                 off = _skip_offset(arr, off, 4 * cfg.skip_records)
@@ -1271,20 +1355,23 @@ def run_pe(
                     )
                     put_interleaved(packed)
                 return
-            src = (_bgzf_source(in1, pipe.stop)
+            src = (_bgzf_source(in1, cfg.byte_limit, pipe.stop)
                    if cfg.skip_records == 0 else None)
             if src is not None:  # zero-copy gzip (see run_se)
                 _produce_bgzf(src, pipe, state, mtr, params, need_rows,
                               eff_chunk, put_interleaved, pair_align=True)
                 return
-            for chunk in iter_record_chunks(in1, lambda: eff_chunk()[0],
+            for chunk in iter_record_chunks(_bounded(in1, cfg.byte_limit),
+                                            lambda: eff_chunk()[0],
                                             skip_records=cfg.skip_records,
                                             max_chunk_bytes=3 * cfg.bytes_per_batch,
                                             align_records=2):
                 put_interleaved(pack(chunk))
         else:
-            m1 = _mmap_input(in1) if native.available() else None
-            m2 = _mmap_input(in2) if native.available() else None
+            m1 = (_mmap_input(in1, cfg.byte_limit)
+                  if native.available() else None)
+            m2 = (_mmap_input(in2, cfg.byte_limit2)
+                  if native.available() else None)
             if m1 is not None and m2 is not None:
                 _produce_two_file_mmap(m1, m2)
                 return
@@ -1292,7 +1379,7 @@ def run_pe(
             # mate-1 rows): one device call per chunk, one shared source
             # buffer for output assembly (incl. mixed-source singles)
             for c1, c2 in _pair_chunks_two_file(
-                in1, in2,
+                _bounded(in1, cfg.byte_limit), _bounded(in2, cfg.byte_limit2),
                 lambda: max(eff_chunk()[0] // 2, 4),
                 skip_each=cfg.skip_records // 2,
                 max_chunk_bytes=3 * cfg.bytes_per_batch,

@@ -200,19 +200,33 @@ def test_pe_hybrid_modes_match_jax_package(layout, mode, corpus_dir,
 
 
 @pytest.mark.parametrize("cmd", ["se", "pe"])
-@pytest.mark.parametrize("extra, what", [
-    (["--dist"], b"--dist"),
-    (["--devices", "2"], b"--devices above 1"),
-])
-def test_unported_options_are_refused(extra, what, cmd, corpus_dir,
-                                      capsysbinary):
-    src = str(corpus_dir / "uniform150.fastq")
-    out = str(corpus_dir / "refused.fastq")
-    io_args = (["-f", src, "-o", out] if cmd == "se"
-               else ["-c", src, "-m", out])
-    rc, _, err = run(lambda a: torch_cli.main(a, device="cpu"),
-                     [cmd, "-t", "sanger"] + io_args + extra, capsysbinary)
-    assert rc == 1 and what + b" is not yet ported" in err
+def test_dist_with_one_process_is_inactive(cmd, corpus_dir, capsysbinary):
+    """``--dist`` in a group of one process (as in the JAX package's
+    ``_Dist.active``): the output is not sharded, and bytes and summary
+    equal the run without ``--dist``."""
+    import socket
+
+    import torch.distributed as dist
+
+    src = str(corpus_dir / "ragged.fastq")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    got = []
+    for tag, extra in (("plain", []), ("dist", [
+            "--dist", "--coordinator", f"127.0.0.1:{port}",
+            "--num-processes", "1", "--process-id", "0"])):
+        out = str(corpus_dir / f"one_process.{cmd}.{tag}.fastq")
+        io_args = (["-f", src, "-o", out] if cmd == "se"
+                   else ["-c", src, "-M", out])
+        rc, so, _ = run(lambda a: torch_cli.main(a, device="cpu"),
+                        [cmd, "-t", "sanger", "--cuts", "device"] + io_args
+                        + extra, capsysbinary)
+        assert rc == 0 and not (corpus_dir / f"{out}.shard0").exists()
+        with open(out, "rb") as f:
+            got.append((so, f.read()))
+    assert got[0] == got[1]
+    assert not dist.is_initialized()  # _finish left the group
 
 
 @pytest.mark.parametrize("argv", [

@@ -334,3 +334,87 @@ def test_wire_kernel_matches_plain_fuzz(dev):
         got = trim_cuda.trim_cuts_wire(torch.from_numpy(buf).to(dev), pw, L,
                                        p, uniform_len=ul, **kw)
         assert torch.equal(got.cpu(), want), (p, L, B, pw, rank, ul)
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_sharded_step_on_one_card_matches_single_device(n, dev):
+    """``sharded_cuts_fn`` over ``[cuda:0] * n`` (every row block launched
+    on the one card): the same bytes as the single-device step, on the
+    band wire and on raw rows, whole slices and single-piece chunks; and
+    a 4,001-row batch padded to a multiple of n gives the single-device
+    codes for its rows."""
+    from sickle_tpu_torch.parallel import data_mesh, sharded_cuts_fn
+
+    p = TrimParams(S, 20)
+    data = (fastq_bytes(*make_reads(6, 30000, length=150))
+            + fastq_bytes(*make_reads(7, 10000, length=(30, 160),
+                                      bad_tail=0.01), first=30000))
+    outs = []
+    for fn in (sharded_cuts_fn(p, data_mesh(devices=[dev] * n), 1024),
+               _cuda_cuts_fn(p, dev, 1024)):
+        trim_cuda.reset_counts()
+        out = io.BytesIO()
+        c = run_se(io.BytesIO(data), out, p, cuts_fn=fn,
+                   cfg=EngineConfig(records_per_chunk=4096, slice_rows=1024))
+        outs.append((out.getvalue(), c, dict(trim_cuda.LAUNCHES_BY_FORM)))
+    assert outs[0][:2] == outs[1][:2]
+    # over 2 the 1,024-row slices hold whole 4,096-row chunks (the band
+    # wire); over 3 the slice rounds up to 1,026 rows, so each chunk is
+    # one piece of raw rows with explicit lengths
+    assert outs[0][2]["raw"] > 0 and (outs[0][2]["band"] > 0) == (n == 2)
+    s, q, lens = make_reads(8, 4001, length=(1, 120), width=120)
+    mesh = sharded_cuts_fn(p, [dev] * n, 1024)
+    for clean in (True, False):
+        got = mesh(s, q, lens, qual_clean=clean).materialize()
+        want = _cuda_cuts_fn(p, dev, 1024)(s, q, lens,
+                                           qual_clean=clean).materialize()
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_two_process_dist_run_on_the_card(dev, tmp_path):
+    """Two ``python -m sickle_tpu_torch se --dist`` processes on the card:
+    the shards concatenated equal the single-process bytes, rank 0 prints
+    the single-process summary and rank 1 nothing."""
+    import contextlib
+    import os
+    import pathlib
+    import socket
+    import subprocess
+    import sys
+
+    from sickle_tpu_torch import cli
+
+    src = tmp_path / "in.fastq"
+    with open(src, "wb") as f:
+        f.write(fastq_bytes(*make_reads(9, 200000, length=(30, 160),
+                                        bad_tail=0.01)))
+    argv = ["se", "-f", str(src), "-t", "sanger", "--cuts", "device"]
+    summary = io.TextIOWrapper(io.BytesIO())
+    with contextlib.redirect_stdout(summary):
+        assert cli.main(argv + ["-o", str(tmp_path / "one.fastq")],
+                        device=dev) == 0
+    summary.flush()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(pathlib.Path(__file__).parents[1]))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "sickle_tpu_torch", *argv, "-o",
+         str(tmp_path / "dist.fastq"), "--dist", "--coordinator",
+         f"127.0.0.1:{port}", "--num-processes", "2", "--process-id",
+         str(rank)], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for rank in range(2)]
+    try:
+        res = [p.communicate(timeout=300) + (p.returncode,) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [r[2] for r in res] == [0, 0], [r[1][-2000:] for r in res]
+    assert res[0][0] == summary.buffer.getvalue().decode()
+    assert res[1][0] == ""
+    shards = b"".join((tmp_path / f"dist.fastq.shard{r}").read_bytes()
+                      for r in range(2))
+    assert shards == (tmp_path / "one.fastq").read_bytes()

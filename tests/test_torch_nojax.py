@@ -113,6 +113,55 @@ print(sorted(m for m in sys.modules
     assert r.stdout.strip() == "[]"
 
 
+def test_parallel_and_tools_import_without_jax():
+    code = """
+import sys
+import sickle_tpu_torch.parallel
+from sickle_tpu_torch.parallel.dist import init_distributed, shard_record_ranges
+from sickle_tpu_torch.tools.trim_all import main
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "sickle_tpu")))
+"""
+    r = _python(code, REPO)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
+
+
+def test_dist_cluster_runs_without_jax(small_fastq):
+    """A two-process ``--dist`` se run (gloo): each process trims its shard
+    and never loads JAX or the JAX package."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    code = """
+import sys
+from sickle_tpu_torch.cli import main
+rc = main(sys.argv[1:], device="cpu")
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "sickle_tpu"))
+sys.stderr.write(f"RESULT {rc} {loaded}\\n")
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, "se", "-f", "in.fastq", "-t", "sanger",
+         "-o", "dist.fastq", "--cuts", "device", "--dist", "--coordinator",
+         f"127.0.0.1:{port}", "--num-processes", "2", "--process-id",
+         str(rank)], cwd=small_fastq, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for rank in range(2)]
+    try:
+        errs = [p.communicate(timeout=60)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, err in enumerate(errs):
+        assert "RESULT 0 []\n" in err, err
+        assert (small_fastq / f"dist.fastq.shard{rank}").stat().st_size > 0
+
+
 def _needs_cuda(argv, cwd):
     r = _python("import torch; print(torch.cuda.is_available())", cwd)
     if r.stdout.strip() != "False":
