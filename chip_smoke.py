@@ -5,20 +5,29 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure raises, so the exit code is non-zero):
 
-1. Device: the card's name and power limit, and the cuts kernel built
-   from ``sickle_tpu_torch/csrc/trim_cuts.cu`` with nvcc.
+1. Device: the card's name and power limit; the cuts kernel built from
+   ``sickle_tpu_torch/csrc/trim_cuts.cu`` with nvcc while g++ builds the
+   host library from ``csrc/fastqio.cpp``; registers and spills of every
+   kernel instantiation (``-Xptxas -v``).
 2. Kernel vs plain: the CUDA kernel against its plain PyTorch versions on
    the same tensors on the card, exact equality (tolerance 0: integer
    outputs).  Raw rows: five, three, the bad-quality flag and the packed
    codes over the nine trim configurations of the JAX package's kernel
    tests, three encodings, uniform 150 bp and ragged 30-160 bp batches of
    65,536 rows, out-of-range chars before and past the 3' cut, and 50 kbp
-   rows (L >= 32766: the unpacked result).  The wires: the ``BAND`` and
-   ``RANK`` prologue forms against ``wire_codes`` and against the raw-row
-   kernel on the same chars, every config with -n off, three encodings,
-   uniform and ragged 65,536-row batches, and every wire width (band
-   p = 1-6, rank p = 1-3).  Then the time per 65,536 x 152 batch of each
-   form and its plain version (CUDA events, median of repeats).
+   rows (L >= 32766: the unpacked result, the direct kernel).  The wires:
+   the ``BAND`` and ``RANK`` prologue forms against ``wire_codes`` and
+   against the raw-row kernel on the same chars, every config with -n
+   off, three encodings, uniform and ragged 65,536-row batches, and every
+   wire width (band p = 1-6, rank p = 1-3).  The tiled kernel's traps,
+   each on the load path its shape asks for: B of 1, 7, 8, 9, 63, 65 and
+   65,537 rows on every wire width, views at odd addresses, explicit
+   lengths with non-zero bytes past them, -n in both forms, and rows
+   just under (tiled) and just over (direct) the tile limit.  Then each
+   form's time per 65,536 x 152 batch three ways (20 calls back to back;
+   one launch over 16 batches; the host time of one call), the first two
+   in turns with the direct kernel, beside its bound (bytes at 3.35 TB/s)
+   and its plain version.
 3. se end to end through the CLI entry point (``sickle_tpu_torch.cli.
    main``, what ``python -m sickle_tpu_torch se`` runs), all with
    ``--metrics``, launch counts set to 0 before each run:
@@ -70,9 +79,11 @@ Phases (any failure raises, so the exit code is non-zero):
      file, each piece launched as one block per shard.
    Wall times and rates are printed as records, not claims.
 
-The last two lines of standard output are the kernels' JSON object
-(``{"kernels": [...]}``: the raw, band and rank forms of the one kernel,
-each with the launches of the main-path runs) and the run's verdict
+Every main-path run must launch only the tiled kernel; launches are
+counted by form and by load path.  The last two lines of standard output
+are the kernels' JSON object (``{"kernels": [...]}``: the raw, band and
+rank forms of the one kernel, each with the launches of the main-path
+runs, by path too, its times and its bound) and the run's verdict
 (``{"ok": true, ...}``).
 No CPU fallback: without a CUDA device the script exits 1 and prints no
 result.
@@ -122,20 +133,61 @@ def phase_device(torch, trim_cuda):
     print(f"card: {card}", flush=True)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
-    t0 = time.perf_counter()
-    trim_cuda.build(force=True)
-    build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in trim_cuda.BUILD_LOG.splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"build: {build_s:.2f} s with nvcc ({len(ptxas) // 2} kernel "
-          f"instantiations); ptxas: {ptxas[:2]}", flush=True)
+    import threading
+
     from sickle_tpu_torch.io import native
 
+    # the two libraries build at once: nvcc for the kernel, g++ for the
+    # host library (each from its own source in the checkout)
+    host = {}
+
+    def build_host():
+        t0 = time.perf_counter()
+        host["ok"] = native.available()
+        host["s"] = time.perf_counter() - t0
+
+    builder = threading.Thread(target=build_host)
     t0 = time.perf_counter()
-    check(native.available(), "the host C++ library did not build")
-    print(f"host library: ready in {time.perf_counter() - t0:.2f} s",
+    builder.start()
+    try:
+        trim_cuda.build(force=True)
+    finally:
+        builder.join()
+    build_s = time.perf_counter() - t0
+    check(host.get("ok"), "the host C++ library did not build")
+    kernels = _ptxas_report(trim_cuda.BUILD_LOG)
+    check(kernels, "nvcc printed no per-kernel report")
+    print(f"build: {build_s:.2f} s for both libraries (nvcc, {len(kernels)} "
+          f"kernel instantiations; g++ host library {host['s']:.2f} s)",
           flush=True)
+    for name, regs, spills in kernels:
+        print(f"  ptxas {name}: {regs} registers, spill stores/loads "
+              f"{spills}", flush=True)
     return card
+
+
+def _ptxas_report(log: str):
+    """[(kernel and template arguments, registers, (spill store bytes,
+    spill load bytes))] from nvcc's -Xptxas -v report."""
+    import re
+
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            mangled = m.group(1)
+            kind = "tiled" if "trim_cuts_tiled" in mangled else "direct"
+            targs = ",".join(re.findall(r"L[ib](\d+)E", mangled))
+            cur = [f"{kind}<{targs}>", None, None]
+            out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and cur:
+            cur[2] = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur:
+            cur[1] = int(m.group(1))
+    return [tuple(k) for k in out]
 
 
 def _configs(TrimParams, Compat, QualityType):
@@ -155,7 +207,7 @@ def _configs(TrimParams, Compat, QualityType):
     ]
 
 
-def phase_kernels(torch, trim_cuda, dev, B=65536):
+def phase_kernels(torch, trim_cuda, dev, card, B=65536):
     from sickle_tpu_torch.constants import QUALITY_CONSTANTS, Compat, QualityType
     from sickle_tpu_torch.ops.trim import (
         TrimParams, compute_cuts, derive_lengths, trim_codes)
@@ -231,24 +283,15 @@ def phase_kernels(torch, trim_cuda, dev, B=65536):
     print(f"kernel vs plain: {n_cases} cases equal (tolerance 0, max abs "
           f"err {max_err}), {trim_cuda.LAUNCHES} launches", flush=True)
 
-    # time per 65,536 x 152 batch, main-path form (default params, lengths
-    # derived in the kernel); rotating over more than L2 holds
-    p = TrimParams()
-    _, qual, _, _ = corpus("uniform", QualityType.SANGER)
-    bufs = [qual.clone() for _ in range(8)]
-    times = {}
-    for name, fn in (
-        ("kernel_uniform", lambda q: trim_cuda.trim_cuts(q, p, uniform_len=150)),
-        ("kernel_generic", lambda q: trim_cuda.trim_cuts(q, p)),
-        ("plain", lambda q: trim_codes(None, q, None, p, 150)),
-    ):
-        times[name] = _time_ms(torch, fn, bufs)
-    print(f"time per 65,536 x 152 batch: kernel {times['kernel_uniform']:.4f} ms "
-          f"(uniform form), {times['kernel_generic']:.4f} ms (generic form); "
-          f"plain PyTorch {times['plain']:.4f} ms", flush=True)
     errs = {"raw": max_err}
-    errs.update(_phase_wire(torch, trim_cuda, dev, B, times))
-    return errs, times
+    werrs, batches = _phase_wire(torch, trim_cuda, dev, B)
+    errs.update(werrs)
+    for form, err in _phase_traps(torch, trim_cuda, dev).items():
+        errs[form] = max(errs[form], err)
+    seq, qual, _, _ = corpus("uniform", QualityType.SANGER)
+    batches["raw"] = (seq, qual)
+    print(f"kernel times on {card}:", flush=True)
+    return errs, _phase_times(torch, trim_cuda, batches)
 
 
 def _wire_args(np, qual, rank, qualtype, p=None):
@@ -271,10 +314,11 @@ def _wire_args(np, qual, rank, qualtype, p=None):
     return qual_fields(qual, bias, p), p, dict(bias=bias - offset)
 
 
-def _phase_wire(torch, trim_cuda, dev, B, times):
+def _phase_wire(torch, trim_cuda, dev, B):
     """The BAND and RANK prologue forms against their plain version
     (ops/trim.py::wire_codes) and against the raw-row kernel on the same
-    chars, on every trim config with -n off; then their time per batch."""
+    chars, on every trim config with -n off.  Returns (max abs errors,
+    {form: (wire rows, p, kernel args)} of the main-path shapes)."""
     import dataclasses
 
     import numpy as np
@@ -336,20 +380,290 @@ def _phase_wire(torch, trim_cuda, dev, B, times):
           f"abs err band {errs['band']}, rank {errs['rank']}); launches "
           f"{dict(trim_cuda.LAUNCHES_BY_FORM)}", flush=True)
 
-    # time per 65,536 x 152 batch on the main-path shapes: uniform 150 bp
-    # Sanger quals 0-41 on the 6-bit band wire, NovaSeq-binned on the
-    # 3-bit rank wire
+    # the main-path shapes, for the times: uniform 150 bp Sanger quals
+    # 0-41 on the 6-bit band wire, NovaSeq-binned on the 3-bit rank wire
+    main = {}
     for form in ("band", "rank"):
-        buf, _, pw, kw, ul = batches[(form, "uniform", QualityType.SANGER)]
-        bufs = [buf.clone() for _ in range(8)]
-        times[form] = _time_ms(torch, lambda b: trim_cuda.trim_cuts_wire(
-            b, pw, L, p, uniform_len=ul, **kw), bufs)
-        times[form + "_plain"] = _time_ms(torch, lambda b: wire_codes(
-            b, pw, L, p, uniform_len=ul, **kw), bufs)
-        print(f"time per 65,536 x 152 batch, {form} wire (p={pw}, "
-              f"{buf.shape[1]} B/row): kernel {times[form]:.4f} ms; plain "
-              f"PyTorch {times[form + '_plain']:.4f} ms", flush=True)
+        buf, _, pw, kw, _ = batches[(form, "uniform", QualityType.SANGER)]
+        main[form] = (buf, pw, kw)
+    return errs, main
+
+
+TRAP_ROWS = (1, 7, 8, 9, 63, 65, 65537)  # a partly full tile; > 1 batch
+
+
+def _path_of(trim_cuda, form, fn):
+    """(fn's result, the load path its one launch of ``form`` took)."""
+    before = dict(trim_cuda.LAUNCHES_BY_PATH[form])
+    out = fn()
+    after = trim_cuda.LAUNCHES_BY_PATH[form]
+    taken = [k for k in after if after[k] != before[k]]
+    check(len(taken) == 1 and sum(after.values()) == sum(before.values()) + 1,
+          f"expected one {form} launch, counts {before} -> {after}")
+    return out, taken[0]
+
+
+def _unaligned(torch, x):
+    """A copy of the uint8 rows ``x`` in a view that starts one byte past
+    its allocation's start (a contiguous tensor at an odd address)."""
+    flat = torch.zeros(x.numel() + 1, dtype=torch.uint8, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _tile_limit(trim_cuda, row_bytes_of, seq=False):
+    """The largest L (a multiple of 8) whose rows still take tiles."""
+    L = 8
+    while trim_cuda.tile_rows(L + 8, row_bytes_of(L + 8), seq):
+        L += 8
+    return L
+
+
+def _phase_traps(torch, trim_cuda, dev):
+    """Where the tiled kernel's loads can go wrong, each case against the
+    plain version on the same tensors at tolerance 0, and each on the load
+    path its shape asks for: tiles partly full (B of 1 to 65,537 rows),
+    wire rows that start off any 16-byte boundary (band p = 1-6, rank
+    p = 1-3), views at odd addresses, explicit lengths with non-zero
+    bytes past them, -n in the generic and uniform forms, and rows just
+    under and just over the tile limit (tiled, then direct)."""
+    import numpy as np
+
+    from sickle_tpu_torch.constants import QualityType
+    from sickle_tpu_torch.ops.trim import TrimParams, trim_codes, wire_codes
+    from sickle_tpu_torch.utils.corpus import make_reads, wire_quals
+
+    L = 152
+    p = TrimParams()
+    errs = {"raw": 0, "band": 0, "rank": 0}
+    paths = {"tiled": 0, "direct": 0}
+    t0 = time.perf_counter()
+
+    def held(form, what, run, want, path="tiled"):
+        got, taken = _path_of(trim_cuda, form, run)
+        err = int((got - want).abs().max()) if got.numel() else 0
+        errs[form] = max(errs[form], err)
+        check(err == 0, f"{form} kernel != plain: {what}")
+        check(taken == path, f"{form} {what} took the {taken} path")
+        paths[taken] += 1
+
+    # the wires: every width, every trap size, two views at odd addresses
+    n = max(TRAP_ROWS)
+    for form, widths in (("band", range(1, 7)), ("rank", range(1, 4))):
+        for pw in widths:
+            for ul in (None, 150):
+                q = wire_quals(700 + pw + (50 if ul else 0), n + 1, L, pw,
+                               rank=form == "rank", uniform=ul)[:n]
+                buf, _, kw = _wire_args(np, q, form == "rank",
+                                        QualityType.SANGER, pw)
+                buf = torch.from_numpy(buf).to(dev)
+                views = [(f"B={b}", buf[:b]) for b in TRAP_ROWS]
+                views += [("buf[1:66]", buf[1:66]),
+                          ("odd address", _unaligned(torch, buf[100:163]))]
+                for what, v in views:
+                    held(form, f"p={pw} uniform={ul} {what}",
+                         lambda: trim_cuda.trim_cuts_wire(
+                             v, pw, L, p, uniform_len=ul, **kw),
+                         wire_codes(v, pw, L, p, uniform_len=ul, **kw))
+
+    # raw rows: -n in both forms, explicit lengths, odd addresses
+    for ul in (None, 150):
+        s, q, lens = make_reads(800 + (ul or 0), n, qualtype=QualityType.SANGER,
+                                length=ul or (30, 152), width=L, n_rate=0.01,
+                                bad_tail=0.01, bad_head=0.002)
+        s[-100:], q[-100:], lens[-100:] = 0, 0, 0
+        seq, qual, lens = (torch.from_numpy(a).to(dev) for a in (s, q, lens))
+        for pn in (p, TrimParams(trunc_n=True),
+                   TrimParams(qual_threshold=30, trunc_n=True,
+                              no_fiveprime=True)):
+            for b in TRAP_ROWS:
+                held("raw", f"{pn} uniform={ul} B={b}",
+                     lambda: trim_cuda.trim_cuts(qual[:b], pn, seq=seq[:b],
+                                                 uniform_len=ul),
+                     trim_codes(seq[:b], qual[:b], None, pn, ul))
+            oq, os_ = (_unaligned(torch, x[5:68]) for x in (qual, seq))
+            held("raw", f"{pn} uniform={ul} odd address",
+                 lambda: trim_cuda.trim_cuts(oq, pn, seq=os_, uniform_len=ul),
+                 trim_codes(os_, oq, None, pn, ul))
+        # explicit lengths, every byte past them non-zero (and seq N)
+        rng = np.random.default_rng(801)
+        past = np.arange(L)[None, :] >= np.asarray(lens.cpu())[:, None]
+        jq, js = q.copy(), s.copy()
+        jq[past] = rng.integers(1, 256, int(past.sum()))
+        js[past] = ord("N")
+        jq, js = torch.from_numpy(jq).to(dev), torch.from_numpy(js).to(dev)
+        for pn in (p, TrimParams(trunc_n=True)):
+            held("raw", f"{pn} uniform={ul} junk past explicit lengths",
+                 lambda: trim_cuda.trim_cuts(jq, pn, lengths=lens, seq=js,
+                                             uniform_len=ul),
+                 trim_codes(js, jq, lens, pn, ul))
+
+    # rows just under and just over the tile limit, on every form
+    limits = [("raw", False, lambda L: L, None), ("raw", True, lambda L: L, None),
+              ("band", False, lambda L: 6 * L // 8, 6),
+              ("rank", False, lambda L: 3 * L // 8, 3)]
+    for form, trunc, rb, pw in limits:
+        top = _tile_limit(trim_cuda, rb, trunc)
+        for Lx, path in ((top, "tiled"), (top + 8, "direct")):
+            pn = TrimParams(trunc_n=trunc)
+            if form == "raw":
+                s, q, _ = make_reads(900 + Lx, 300, length=(1, Lx), width=Lx,
+                                     n_rate=0.01, bad_tail=0.02)
+                seq, qual = torch.from_numpy(s).to(dev), torch.from_numpy(q).to(dev)
+                held(form, f"L={Lx} -n={trunc}",
+                     lambda: trim_cuda.trim_cuts(qual, pn, seq=seq),
+                     trim_codes(seq, qual, None, pn), path)
+            else:
+                q = wire_quals(950 + Lx, 300, Lx, pw, rank=form == "rank")
+                buf, _, kw = _wire_args(np, q, form == "rank",
+                                        QualityType.SANGER, pw)
+                buf = torch.from_numpy(buf).to(dev)
+                held(form, f"L={Lx} p={pw}",
+                     lambda: trim_cuda.trim_cuts_wire(buf, pw, Lx, pn, **kw),
+                     wire_codes(buf, pw, Lx, pn, **kw), path)
+        print(f"tile limit, {form}{' -n' if trunc else ''}: L = {top} tiled, "
+              f"L = {top + 8} direct; both equal the plain version",
+              flush=True)
+    torch.cuda.synchronize()
+    print(f"trap cases: {sum(paths.values())} equal (tolerance 0, max abs "
+          f"err {errs}); paths {paths}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return errs
+
+
+# The card's peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s,
+# and the rate outside the tensor cores (the cut math is integer adds and
+# compares; the data sheet lists no integer rate outside them).
+HBM_BYTES_S = 3.35e12
+SCALAR_OPS_S = 67e12
+# integer ops per position the cut math needs at least: the running
+# prefix, the window test (two ops), the length and range compares (three)
+OPS_PER_POSITION = 6
+
+
+def _bound(B, L, row_bytes, seq=False):
+    """(least ms the card needs, "bytes" or "operations") for one batch:
+    every input byte read once (the rows, seq rows under -n) and the 4 B
+    code written once, against OPS_PER_POSITION ops per position."""
+    by = B * (row_bytes + 4 + (L if seq else 0)) / HBM_BYTES_S * 1e3
+    ops = B * L * OPS_PER_POSITION / SCALAR_OPS_S * 1e3
+    return (by, "bytes") if by >= ops else (ops, "operations")
+
+
+def _one_launch_ms(torch, fn, big, per=16, reps=5):
+    """ms per batch of one launch over ``per`` batches at once (more than
+    L2 holds), median of ``reps``."""
+    fn(big)
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(big)
+        stop.record()
+        stop.synchronize()
+        samples.append(start.elapsed_time(stop) / per)
+    return statistics.median(samples)
+
+
+def _host_ms(torch, fn, x, reps=50):
+    """Median host time of one call (the enqueue: checks, allocation,
+    the ctypes call), the card idle before each."""
+    samples = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(x)
+        samples.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(samples)
+
+
+@contextlib.contextmanager
+def _direct_path(trim_cuda):
+    """Within the block every launch takes the direct kernel, the load
+    path of earlier runs, for an A/B in one call."""
+    tile_rows, layout = trim_cuda.tile_rows, trim_cuda._wire_layout
+    trim_cuda.tile_rows = lambda L, row_bytes, seq=False: 0
+    trim_cuda._wire_layout = lambda p, L: layout(p, L)[:2] + (0,)
+    try:
+        yield
+    finally:
+        trim_cuda.tile_rows, trim_cuda._wire_layout = tile_rows, layout
+
+
+def _phase_times(torch, trim_cuda, batches, B=65536, L=152):
+    """Each form's time per 65,536 x 152 batch three ways: 20 calls back
+    to back over 8 rotating batches (the figure of earlier runs), one
+    launch over 16 x 65,536 rows divided by 16, and the host time of one
+    call; beside its plain version, its bound and share of bound.  The
+    first two are taken in turns with the direct kernel on the same
+    inputs (direct, tiled, tiled, direct; each the mean of its turns)."""
+    from sickle_tpu_torch.ops.trim import TrimParams, trim_codes, wire_codes
+
+    p, pn = TrimParams(), TrimParams(trunc_n=True)
+    seq, qual = batches["raw"]
+    cases = {  # name: (kernel fn, plain fn, args, row bytes, -n)
+        "raw_uniform": (lambda x: trim_cuda.trim_cuts(x[0], p, uniform_len=150),
+                        lambda x: trim_codes(None, x[0], None, p, 150),
+                        (qual,), L, False),
+        "raw_generic": (lambda x: trim_cuda.trim_cuts(x[0], p),
+                        lambda x: trim_codes(None, x[0], None, p),
+                        (qual,), L, False),
+        "raw_trunc_n": (lambda x: trim_cuda.trim_cuts(x[0], pn, seq=x[1]),
+                        lambda x: trim_codes(x[1], x[0], None, pn),
+                        (qual, seq), L, True),
+        "raw_uniform_trunc_n": (
+            lambda x: trim_cuda.trim_cuts(x[0], pn, seq=x[1], uniform_len=150),
+            lambda x: trim_codes(x[1], x[0], None, pn, 150),
+            (qual, seq), L, True),
+    }
+    for form in ("band", "rank"):
+        buf, pw, kw = batches[form]
+        cases[form] = (
+            lambda x, pw=pw, kw=kw: trim_cuda.trim_cuts_wire(
+                x[0], pw, L, p, uniform_len=150, **kw),
+            lambda x, pw=pw, kw=kw: wire_codes(x[0], pw, L, p,
+                                               uniform_len=150, **kw),
+            (buf,), buf.shape[1], False)
+    times = {}
+    for name, (fn, plain, args, row_bytes, trunc) in cases.items():
+        rot = [tuple(a.clone() for a in args) for _ in range(8)]
+        big = tuple(a.repeat(16, 1) for a in args)
+        want = fn(big)
+        check(torch.equal(want[:B], fn(args)), f"{name}: 16 batches at once "
+              f"disagree with one")
+        with _direct_path(trim_cuda):
+            check(torch.equal(fn(big), want), f"{name}: the direct kernel "
+                  f"disagrees with the tiled one")
+        turns = {"tiled": [], "direct": []}
+        for path in ("direct", "tiled", "tiled", "direct"):
+            with (_direct_path(trim_cuda) if path == "direct"
+                  else contextlib.nullcontext()):
+                turns[path].append((_time_ms(torch, fn, rot),
+                                    _one_launch_ms(torch, fn, big)))
+        mean = {k: [statistics.mean(x) for x in zip(*v)]
+                for k, v in turns.items()}
+        t = {"ms": mean["tiled"][0], "one_launch_ms": mean["tiled"][1],
+             "direct_ms": mean["direct"][0],
+             "direct_one_launch_ms": mean["direct"][1],
+             "host_ms": _host_ms(torch, fn, args),
+             "plain_ms": _time_ms(torch, plain, rot, reps=3, iters=5)}
+        t["bound_ms"], t["bound_by"] = _bound(B, L, row_bytes, trunc)
+        times[name] = t
+        del big, want
+        print(f"time per 65,536 x 152 batch, {name} ({row_bytes} B/row"
+              f"{' + 152 B seq' if trunc else ''}): 20 calls {t['ms']:.4f} ms "
+              f"(direct kernel {t['direct_ms']:.4f}), one launch over 16 "
+              f"batches {t['one_launch_ms']:.4f} ms (direct "
+              f"{t['direct_one_launch_ms']:.4f}), host {t['host_ms']:.4f} ms "
+              f"per call; bound {t['bound_ms']:.5f} ms ({t['bound_by']}), "
+              f"share of bound {100 * t['bound_ms'] / t['one_launch_ms']:.1f}% "
+              f"(one launch), {100 * t['bound_ms'] / t['ms']:.1f}% (20 calls); "
+              f"plain PyTorch {t['plain_ms']:.4f} ms", flush=True)
+    return times
 
 
 def _unpack(codes):
@@ -397,6 +711,10 @@ MODES = {
 }
 
 
+# main-path launches by form and load path, summed over every _run_mode
+MAIN_PATHS = {form: {"tiled": 0, "direct": 0} for form in ("raw", "band", "rank")}
+
+
 def _run_mode(trim_cuda, cli, argv, mode, device):
     """One CLI run in ``mode`` with --metrics, launch counts set to 0 just
     before it; returns (rc, stdout, stderr, wall, metrics, launches)."""
@@ -409,11 +727,19 @@ def _run_mode(trim_cuda, cli, argv, mode, device):
         for k in env:
             os.environ.pop(k, None)
     launches = dict(trim_cuda.LAUNCHES_BY_FORM)
+    for form, by_path in trim_cuda.LAUNCHES_BY_PATH.items():
+        for path, k in by_path.items():
+            MAIN_PATHS[form][path] += k
     check(rc == 0, f"{mode} run exited {rc}: {se[-2000:]}")
     met = _metrics(se)
     if mode != "host":
         check(sum(launches.values()) > 0,
               f"the {mode} run never launched the cuts kernel")
+        # every main-path read is short: the tiled kernel carries it
+        tiled = sum(v["tiled"] for v in trim_cuda.LAUNCHES_BY_PATH.values())
+        check(tiled == sum(launches.values()),
+              f"the {mode} run left the tiled kernel: "
+              f"{trim_cuda.LAUNCHES_BY_PATH}")
     if mode in ("device", "raw"):
         check("hybrid" not in met, f"--cuts device ran the router: {met}")
     if mode == "raw":
@@ -1077,40 +1403,57 @@ def main() -> int:
     from sickle_tpu_torch.ops import trim_cuda
 
     t_start = time.perf_counter()
+    marks = [t_start]
+
+    def mark(phase):
+        marks.append(time.perf_counter())
+        print(f"phase {phase}: {marks[-1] - marks[-2]:.1f} s", flush=True)
+
     card = phase_device(torch, trim_cuda)
+    mark(1)
     dev = torch.device("cuda", 0)
-    errs, times = phase_kernels(torch, trim_cuda, dev)
+    errs, times = phase_kernels(torch, trim_cuda, dev, card)
+    mark(2)
     workdir = tempfile.mkdtemp(prefix="sickle_smoke_")
     try:
         launches, se_src = phase_e2e(trim_cuda, card, dev, workdir)
+        mark(3)
         pe_launches, pe_inputs = phase_pe(trim_cuda, card, dev, workdir)
+        mark(4)
         for form, n in pe_launches.items():
             launches[form] += n
         for form, n in phase_dist(trim_cuda, card, dev, workdir, se_src,
                                   pe_inputs).items():
             launches[form] += n
+        mark(5)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for form in ("raw", "band", "rank"):
         check(launches[form] > 0, f"the main path never launched the "
               f"{form} form: {launches}")
+        check(sum(MAIN_PATHS[form].values()) == launches[form],
+              f"launch counts by path {MAIN_PATHS} != by form {launches}")
+    print(f"main-path launches by form and path: {MAIN_PATHS}", flush=True)
     print(f"smoke: all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(f"card: {card}", flush=True)
-    print(json.dumps({"kernels": [
-        {"name": "trim_cuts", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES, "launches": launches["raw"],
-         "max_abs_err": errs["raw"], "ms": times["kernel_uniform"],
-         "plain_ms": times["plain"]},
-        {"name": "trim_cuts[band]", "route": "cuda", "source": SOURCE,
-         "replaces": "sickle_tpu/ops/trim.py:93", "launches": launches["band"],
-         "max_abs_err": errs["band"], "ms": times["band"],
-         "plain_ms": times["band_plain"]},
-        {"name": "trim_cuts[rank]", "route": "cuda", "source": SOURCE,
-         "replaces": "sickle_tpu/ops/trim.py:153", "launches": launches["rank"],
-         "max_abs_err": errs["rank"], "ms": times["rank"],
-         "plain_ms": times["rank_plain"]},
-    ]}))
+    entries = []
+    for name, form, timed, replaces in (
+            ("trim_cuts", "raw", "raw_uniform", REPLACES),
+            ("trim_cuts[band]", "band", "band", "sickle_tpu/ops/trim.py:93"),
+            ("trim_cuts[rank]", "rank", "rank", "sickle_tpu/ops/trim.py:153")):
+        t = times[timed]
+        entries.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": replaces, "launches": launches[form],
+            "launches_by_path": MAIN_PATHS[form],
+            "max_abs_err": errs[form], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "one_launch_ms": t["one_launch_ms"], "host_ms": t["host_ms"],
+            "direct_ms": t["direct_ms"],
+            "direct_one_launch_ms": t["direct_one_launch_ms"]})
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -301,6 +301,16 @@ def _records_per_chunk(batch_mb: Optional[int]) -> int:
 CUTS_MODES = ("auto", "hybrid", "device", "host")
 
 
+def _resolve_cuts_mode(mode: str) -> str:
+    """``--cuts auto`` (given or by default) becomes ``host`` when the
+    environment sets ``SICKLE_TPU_CUTS=host``, as in the JAX package
+    (``sickle_tpu/cli.py::_build_cuts_fn``); ``--cuts device``,
+    ``hybrid`` and ``host`` are taken as given."""
+    if mode == "auto" and os.environ.get("SICKLE_TPU_CUTS") == "host":
+        return "host"
+    return mode
+
+
 def _refused(cuts_mode: str, device: torch.device) -> Optional[int]:
     """Exit code 1 when the run needs a CUDA device that is absent, else
     None.  No CPU fallback."""
@@ -543,6 +553,7 @@ def se_main(argv: List[str], device: torch.device) -> int:
     if infn == outfn:
         sys.stderr.write("****Error: Input file is same as output file.\n\n")
         return 1
+    cuts_mode = _resolve_cuts_mode(cuts_mode)
     rc = _refused(cuts_mode, device)
     if rc is not None:
         return rc
@@ -779,6 +790,7 @@ def pe_main(argv: List[str], device: torch.device) -> int:
                 PE_USAGE, 1,
                 "****Error: The -f option cannot be used in combination with -c, -m, or -M.",
             )
+    cuts_mode = _resolve_cuts_mode(cuts_mode)
     rc = _refused(cuts_mode, device)
     if rc is not None:
         return rc

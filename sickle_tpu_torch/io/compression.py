@@ -10,7 +10,7 @@ and truncates (SURVEY.md §2.4.6).
 gzip is inherently serial to inflate — EXCEPT blocked gzip (BGZF, the
 SAM-spec format emitted by bgzip/samtools and common for sequencing
 data), whose per-block 'BC' size field lets both directions run one
-block per core (io/_fastqio.cpp).  Inputs are header-sniffed: BGZF files
+block per core (csrc/fastqio.cpp).  Inputs are header-sniffed: BGZF files
 decode in parallel windows; anything else falls back to the serial zlib
 stream.  ``-g`` output is written AS BGZF (still a perfectly valid .gz
 for any consumer), so compression parallelizes and our own outputs
@@ -283,7 +283,7 @@ class BgzfWriter(io.RawIOBase):
     """Parallel BGZF compressor for ``-g`` output.
 
     Buffers assembled chunks and deflates them one 48 KiB block per core
-    (io/_fastqio.cpp sk_bgzf_compress); the result is a standard .gz any
+    (csrc/fastqio.cpp sk_bgzf_compress); the result is a standard .gz any
     consumer reads, plus block-parallel re-ingestion and bgzip/tabix
     compatibility.  Runs on the engine's writer thread, overlapping
     device dispatch and packing.

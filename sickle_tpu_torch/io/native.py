@@ -1,11 +1,12 @@
 """ctypes binding + build for the native host-I/O fast path.
 
-The C++ source is shared with the JAX package: ``sickle_tpu/io/_fastqio.cpp``
-is located by path and compiled here (the file is read by g++, never
-imported, so no JAX loads).  The library goes to this package's own
-git-ignored ``_build/`` directory, built at first use with g++ (plain C
-ABI via ctypes).  Falls back to the numpy path in ``fastq.py`` when
-unavailable (set SICKLE_TPU_NO_NATIVE=1 to force the fallback).
+The C++ source is this package's own ``csrc/fastqio.cpp`` (a copy of the
+JAX package's ``sickle_tpu/io/_fastqio.cpp``, equal but for two comments,
+so the two packages' host paths stay equal).  The library goes to this
+package's own git-ignored ``_build/`` directory, built at first use with
+g++ (plain C ABI via ctypes).  Falls back to the numpy path in
+``fastq.py`` when unavailable (set SICKLE_TPU_NO_NATIVE=1 to force the
+fallback).
 
 Also applies glibc malloc tuning: first-touch page faults can cost
 ~400us each on some hosts, making FRESH allocations ~300x slower than
@@ -23,7 +24,7 @@ import tempfile
 import threading
 
 _HERE = pathlib.Path(__file__).resolve().parent
-_SRC = _HERE.parents[1] / "sickle_tpu" / "io" / "_fastqio.cpp"
+_SRC = _HERE.parent / "csrc" / "fastqio.cpp"
 _BUILD_DIR = _HERE.parent / "_build"
 _SO = _BUILD_DIR / "_fastqio.so"
 

@@ -5,9 +5,12 @@ Port of ``sickle_tpu/ops/trim_pallas.py``: the four Pallas kernels
 operand) become one templated CUDA kernel, which also fuses the JAX
 device step's length derivation and wire decoders (``decode_fields``,
 ``apply_rank_lut``: the load prologue) and result packing (epilogue).
-The kernel is built with ``nvcc`` at first use into a plain-C shared
-library under the package's git-ignored ``_build/cuda`` directory and
-bound with ctypes — no PyTorch headers, so the build takes seconds.
+It comes in two load paths: the tiled kernel stages tiles of rows in
+shared memory (every row short enough for one, see ``tile_rows``), the
+direct kernel reads long rows in device memory.  The library is built
+with ``nvcc`` at first use into a plain-C shared library under the
+package's git-ignored ``_build/cuda`` directory and bound with ctypes —
+no PyTorch headers, so the build takes seconds.
 
 ``trim_cuts`` (raw quality rows) and ``trim_cuts_wire`` (a field- or
 rank-wire chunk) take tensors: on a CUDA tensor they launch the kernel or
@@ -19,6 +22,7 @@ kernel is held against on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import pathlib
 import shutil
@@ -30,6 +34,7 @@ from typing import Optional
 import torch
 
 from ..constants import Compat, QUALITY_CONSTANTS
+from ..io.fastq import field_widths
 from .trim import MAX_PACKED_L, TrimParams, trim_codes, wire_codes
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
@@ -39,15 +44,61 @@ _LIB_PATH = _BUILD_DIR / "libtrim_cuts.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# kernel launches (one per call on a CUDA tensor): in all, and by the
-# row's source form (raw rows, the band wire, the rank wire)
+# kernel launches (one per call on a CUDA tensor): in all, by the row's
+# source form (raw rows, the band wire, the rank wire), and by form and
+# load path (the tiled or the direct kernel)
 LAUNCHES = 0
 LAUNCHES_BY_FORM = {"raw": 0, "band": 0, "rank": 0}
+LAUNCHES_BY_PATH = {form: {"tiled": 0, "direct": 0}
+                    for form in LAUNCHES_BY_FORM}
 # the compiler's report (registers, spills) from the last build, or ""
 BUILD_LOG = ""
 
 _lock = threading.Lock()
 _lib = None
+
+# The tiled kernel's shared memory per block: for each of its 8 warps, its
+# quality rows as they lie in device memory, under -n its seq rows, on a
+# wire its rows decoded.  Within this budget a block needs no opt-in and
+# several share an SM.
+TILE_SMEM_BUDGET = 48 * 1024
+# rows per tile, tried in turn: multiples of the 8 warps, 3 rows a warp
+# first (of the sizes tried on the H100, 8-64 rows, the fastest at the
+# main path's shapes)
+TILE_ROWS = (24, 16, 8)
+WARPS = 8
+
+
+def _stage_bytes(rows: int, row_bytes: int) -> int:
+    # the rows, the up to 15 bytes by which they start past a 16-byte
+    # boundary, rounded up to 16
+    return (rows * row_bytes + 30) // 16 * 16
+
+
+def tile_smem_bytes(rows: int, L: int, row_bytes: int,
+                    seq: bool = False) -> int:
+    """Shared memory of one tiled block of ``rows`` rows, ``rows / 8`` per
+    warp (``csrc/trim_cuts.cu::warp_smem`` times 8): ``row_bytes == L``
+    are raw rows (``seq``: with -n's seq rows), fewer bytes a wire, whose
+    rows are also decoded to ``L`` bytes each."""
+    per = rows // WARPS
+    return WARPS * (_stage_bytes(per, row_bytes)
+                    + (_stage_bytes(per, L) if seq else 0)
+                    + ((per * L + 15) // 16 * 16 if row_bytes < L else 0))
+
+
+def tile_rows(L: int, row_bytes: int, seq: bool = False) -> int:
+    """Rows per shared-memory tile for rows of ``L`` positions held in
+    ``row_bytes`` bytes (see ``tile_smem_bytes``): the first of TILE_ROWS
+    within TILE_SMEM_BUDGET, or 0 for the direct kernel, which takes rows
+    whose tile of 8 would not fit and rows of ``L >= MAX_PACKED_L``
+    (unpacked results).  A function of the shape alone."""
+    if L >= MAX_PACKED_L:
+        return 0
+    for rows in TILE_ROWS:
+        if tile_smem_bytes(rows, L, row_bytes, seq) <= TILE_SMEM_BUDGET:
+            return rows
+    return 0
 
 
 def _nvcc() -> str:
@@ -85,12 +136,12 @@ def build(force: bool = False) -> ctypes.CDLL:
         lib.sk_trim_cuts.restype = ci
         lib.sk_trim_cuts.argtypes = [vp, vp, vp, vp, ctypes.c_longlong,
                                      ci, ci, ci, ci, ci, ci, ci, ci, ci,
-                                     ci, ci, vp]
+                                     ci, ci, ci, vp]
         lib.sk_trim_cuts_wire.restype = ci
         lib.sk_trim_cuts_wire.argtypes = [vp, vp, ctypes.c_longlong, ci, ci,
                                           ci, ci, ctypes.POINTER(ci), ci,
                                           ctypes.c_ulonglong, ci, ci, ci, ci,
-                                          vp]
+                                          ci, vp]
         _lib = lib
         return _lib
 
@@ -146,6 +197,7 @@ def trim_cuts(qual: torch.Tensor, params: TrimParams, *,
     lib = build()
     offset, qmin, qmax = QUALITY_CONSTANTS[params.qualtype]
     w = 0 if uniform_len is None else (uniform_len // 10 or uniform_len)
+    tile = tile_rows(L, L, params.trunc_n)
     with torch.cuda.device(dev):
         rc = lib.sk_trim_cuts(
             seq.data_ptr() if params.trunc_n else None,
@@ -154,12 +206,12 @@ def trim_cuts(qual: torch.Tensor, params: TrimParams, *,
             out.data_ptr(), B, L, offset, qmin, qmax,
             params.qual_threshold, params.length_threshold,
             int(params.no_fiveprime), int(params.trunc_n),
-            int(params.compat != Compat.V133), w, int(packed),
+            int(params.compat != Compat.V133), w, int(packed), tile,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"trim_cuts kernel launch failed: CUDA error {rc}")
-    _count("raw")
+    _count("raw", tile)
     return out
 
 
@@ -169,12 +221,14 @@ def reset_counts() -> None:
     LAUNCHES = 0
     for form in LAUNCHES_BY_FORM:
         LAUNCHES_BY_FORM[form] = 0
+        LAUNCHES_BY_PATH[form].update(tiled=0, direct=0)
 
 
-def _count(form: str) -> None:
+def _count(form: str, tile: int) -> None:
     global LAUNCHES
     LAUNCHES += 1
     LAUNCHES_BY_FORM[form] += 1
+    LAUNCHES_BY_PATH[form]["tiled" if tile else "direct"] += 1
 
 
 def _lut_word(lut, p: int) -> int:
@@ -189,6 +243,17 @@ def _lut_word(lut, p: int) -> int:
     return sum((x & 0xFF) << (8 * k) for k, x in enumerate(vals))
 
 
+@functools.lru_cache(maxsize=None)
+def _wire_layout(p: int, L: int):
+    """(the wire's subfield triples as a ctypes int array, their count,
+    rows per tile) for a ``p``-bit wire of ``L`` positions; built once
+    per shape."""
+    fields = [(w.bit_length() - 1, sh, int(colf * L))
+              for w, sh, colf in field_widths(p)]
+    flat = (ctypes.c_int * 9)(*[x for f in fields for x in f])
+    return flat, len(fields), tile_rows(L, p * L // 8)
+
+
 def trim_cuts_wire(buf: torch.Tensor, p: int, L: int, params: TrimParams, *,
                    bias: Optional[int] = None, lut=None,
                    uniform_len: Optional[int] = None) -> torch.Tensor:
@@ -196,10 +261,11 @@ def trim_cuts_wire(buf: torch.Tensor, p: int, L: int, params: TrimParams, *,
     of ``io/fastq.qual_fields`` with ``bias``, or the rank wire of
     ``qual_rank_fields`` with ``lut``, ``1 << p`` entries, ``p <= 3``).
 
-    The kernel decodes each position as it reads it (the ``BAND`` /
-    ``RANK`` prologue), derives lengths from the first ``v == 0`` and
-    returns packed int32[B] codes ``(five+1) << 16 | (three+1)``; see
-    ``ops/trim.py::wire_codes``, the plain version.
+    The kernel decodes the wire (the ``BAND`` / ``RANK`` prologue: once
+    per tile on the tiled path, at each read on the direct one), derives
+    lengths from the first ``v == 0`` and returns packed int32[B] codes
+    ``(five+1) << 16 | (three+1)``; see ``ops/trim.py::wire_codes``, the
+    plain version.
     """
     if buf.device.type == "cpu":
         return wire_codes(buf, p, L, params, bias=bias, lut=lut,
@@ -224,23 +290,19 @@ def trim_cuts_wire(buf: torch.Tensor, p: int, L: int, params: TrimParams, *,
     out = torch.empty((B,), dtype=torch.int32, device=buf.device)
     if B == 0:
         return out
-    from ..io.fastq import field_widths
-
-    fields = [(w.bit_length() - 1, sh, int(colf * L))
-              for w, sh, colf in field_widths(p)]
-    flat = (ctypes.c_int * 9)(*[x for f in fields for x in f])
+    fields, n_fields, tile = _wire_layout(p, L)
     lib = build()
     w = 0 if uniform_len is None else (uniform_len // 10 or uniform_len)
     with torch.cuda.device(buf.device):
         rc = lib.sk_trim_cuts_wire(
             buf.data_ptr(), out.data_ptr(), B, L, p * L // 8,
-            int(lut is not None), len(fields), flat,
+            int(lut is not None), n_fields, fields,
             0 if bias is None else int(bias), lut_word,
             params.qual_threshold, params.length_threshold,
-            int(params.no_fiveprime), w,
+            int(params.no_fiveprime), w, tile,
             torch.cuda.current_stream(buf.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"trim_cuts_wire kernel launch failed: CUDA error {rc}")
-    _count("rank" if lut is not None else "band")
+    _count("rank" if lut is not None else "band", tile)
     return out

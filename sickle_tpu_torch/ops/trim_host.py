@@ -14,7 +14,7 @@ reference's scan would flag (else BIG).  Three uses:
   vectorized packing + parallel scalar cuts;
 * a fast exact resolver for any future approximate wire format.
 
-The C++ core (io/_fastqio.cpp sk_cuts) transcribes the oracle semantics
+The C++ core (csrc/fastqio.cpp sk_cuts) transcribes the oracle semantics
 (SURVEY.md §2.3) including LAZY quality-range checking; the numpy-less
 fallback is the scalar oracle itself.
 """

@@ -154,7 +154,7 @@ class _BgzfSpan:
     The block index makes the compressed file byte-splittable: offsets
     here are uncompressed offsets, which the engine consumes directly
     (BgzfReader.seek + byte_limit on the inflated stream).  Counting
-    streams block-parallel inflate windows (io/_fastqio.cpp), so a
+    streams block-parallel inflate windows (csrc/fastqio.cpp), so a
     boundary probe costs one window and a record count costs one prefix
     pass — never a whole-file inflate per host.
 

@@ -48,10 +48,12 @@ def corpus_dir(tmp_path_factory):
 
 @pytest.fixture(autouse=True)
 def _restore_engine_env(monkeypatch):
-    # the JAX CLI's --cuts flag writes these into os.environ; keep any
-    # such change from leaking out of this module
+    # the JAX CLI's --cuts flag writes these into os.environ; setenv
+    # records each one's prior state, so teardown restores it and no such
+    # change leaks out of a test
     for var in ("SICKLE_TPU_CUTS", "SICKLE_TPU_HYBRID"):
-        monkeypatch.delenv(var, raising=False)
+        monkeypatch.setenv(var, "")
+        monkeypatch.delenv(var)
 
 
 def run(main, argv, capsysbinary):
@@ -197,6 +199,37 @@ def test_pe_hybrid_modes_match_jax_package(layout, mode, corpus_dir,
                  capsysbinary)
         runs.append((rc, [open(o, "rb").read() for o in outs]))
     assert runs[0] == runs[1] and runs[0][0][0] == 0
+
+
+@pytest.mark.parametrize("cuts", [None, "auto", "device"])
+def test_cuts_env_host_matches_jax_package(cuts, corpus_dir, capsysbinary,
+                                           monkeypatch):
+    """``SICKLE_TPU_CUTS=host`` as the JAX package reads it: with no
+    ``--cuts`` or with ``--cuts auto`` the run takes the host kernel, so a
+    CUDA device without a card is no reason to refuse it; ``--cuts
+    device`` takes the device step (here on the CPU device).  Bytes and
+    summary equal the JAX package's under the same variable."""
+    import json
+
+    src = str(corpus_dir / "ragged.fastq")
+    argv = ["se", "-f", src, "-t", "sanger"] + (["--cuts", cuts] if cuts else [])
+    got_out = str(corpus_dir / f"env_host.{cuts}.torch.fastq")
+    want_out = str(corpus_dir / f"env_host.{cuts}.jax.fastq")
+    device = "cpu" if cuts == "device" else "cuda"
+    monkeypatch.setenv("SICKLE_TPU_CUTS", "host")
+    got = run(lambda a: torch_cli.main(a, device=device),
+              argv + ["-o", got_out, "--metrics"], capsysbinary)
+    assert got[0] == 0, got[2]
+    met = json.loads(got[2].decode().splitlines()[-1][len("metrics: "):])
+    if cuts == "device":
+        assert met["h2d_bytes"] > 0 and "hybrid" not in met
+    else:
+        assert met["h2d_bytes"] == 0 and met["hybrid"]["chunks_device"] == 0
+    monkeypatch.setenv("SICKLE_TPU_CUTS", "host")
+    want = run(jax_cli.main, argv + ["-o", want_out], capsysbinary)
+    assert got[:2] == want[:2]
+    with open(got_out, "rb") as a, open(want_out, "rb") as b:
+        assert a.read() == b.read()
 
 
 @pytest.mark.parametrize("cmd", ["se", "pe"])

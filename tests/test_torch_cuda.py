@@ -69,26 +69,75 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def rows(p, form, dev, B=4096, seed=0):
+def rows(p, form, dev, B=4096, seed=0, L=None):
     kw = dict(length=150, width=152) if form == "uniform" else dict(
         length=(1, 250), width=256)
+    if L is not None:
+        kw = dict(length=(1, L), width=L)
     s, q, n = make_reads(seed, B, qualtype=p.qualtype, n_rate=0.02,
                          bad_tail=0.02, bad_head=0.01, **kw)
     s[-5:], q[-5:], n[-5:] = 0, 0, 0
     return [torch.from_numpy(a).to(dev) for a in (s, q, n)]
 
 
+def _odd_address(x):
+    """The uint8 rows ``x`` in a contiguous view one byte past the start
+    of its allocation."""
+    flat = torch.zeros(x.numel() + 1, dtype=torch.uint8, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _tile_limit(row_bytes_of, seq=False):
+    """The largest L (a multiple of 8) whose rows still take tiles."""
+    L = 8
+    while trim_cuda.tile_rows(L + 8, row_bytes_of(L + 8), seq):
+        L += 8
+    return L
+
+
+# B = 4096 and the shapes the tiled kernel's loads must get right: tiles
+# partly full, rows at an odd address, bytes past explicit lengths, and
+# rows just under (tiled) and just over (direct) the tile limit
+RAW_SHAPES = ["b4096", "b1", "b9", "b65", "odd_address", "junk_past_len",
+              "limit_tiled", "limit_direct"]
+
+
+@pytest.mark.parametrize("shape", RAW_SHAPES)
 @pytest.mark.parametrize("form", ["generic", "uniform"])
 @pytest.mark.parametrize("p", PARAMS, ids=[f"p{i}" for i in range(len(PARAMS))])
-def test_kernel_matches_plain(p, form, dev):
-    seq, qual, lens = rows(p, form, dev)
+def test_kernel_matches_plain(p, form, shape, dev):
     ul = 150 if form == "uniform" else None
-    want = trim_codes(seq, qual, None, p, ul)
-    for lengths in (None, lens):
+    path = "tiled"
+    if shape.startswith("limit"):
+        top = _tile_limit(lambda L: L, p.trunc_n)
+        path = shape.split("_")[1]
+        seq, qual, lens = rows(p, form, dev, B=300,
+                               L=top if path == "tiled" else top + 8)
+        ul = None
+    else:
+        seq, qual, lens = rows(p, form, dev)
+    B = {"b1": 1, "b9": 9, "b65": 65, "odd_address": 63}.get(shape)
+    if B is not None:
+        seq, qual, lens = seq[:B], qual[:B], lens[:B]
+    if shape == "odd_address":
+        seq, qual = _odd_address(seq), _odd_address(qual)
+    lengths_cases = (None, lens)
+    if shape == "junk_past_len":  # every byte past a read's length set
+        past = torch.arange(qual.shape[1], device=dev)[None, :] >= lens[:, None]
+        qual = torch.where(past, torch.randint(1, 256, qual.shape, device=dev,
+                                               dtype=torch.uint8), qual)
+        seq = torch.where(past, ord("N"), seq).to(torch.uint8)
+        lengths_cases = (lens,)
+    want = trim_codes(seq, qual, lengths_cases[0], p, ul)
+    for lengths in lengths_cases:
+        before = dict(trim_cuda.LAUNCHES_BY_PATH["raw"])
         got = trim_cuda.trim_cuts(qual, p, lengths=lengths, seq=seq,
                                   uniform_len=ul)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+        assert trim_cuda.LAUNCHES_BY_PATH["raw"][path] == before[path] + 1
 
 
 def test_long_rows_unpacked(dev):
@@ -226,30 +275,45 @@ def _wire(qual, p, rank, qualtype):
     return qual_fields(qual, bias, p), dict(bias=bias - offset)
 
 
+# B = 2048 and the trap shapes of the tiled kernel: tiles partly full,
+# wire rows (p * 152 / 8 bytes) at an odd address and one row in
+WIRE_SHAPES = ["b2048", "b1", "b7", "b9", "b65", "odd_address", "buf[1:]"]
+
+
+@pytest.mark.parametrize("shape", WIRE_SHAPES)
 @pytest.mark.parametrize("form", ["generic", "uniform"])
 @pytest.mark.parametrize("wire, p", [("band", p) for p in range(1, 7)]
                          + [("rank", p) for p in range(1, 4)])
-def test_wire_kernel_matches_plain(wire, p, form, dev):
+def test_wire_kernel_matches_plain(wire, p, form, shape, dev):
     """The BAND / RANK prologue forms against wire_codes, and against the
     raw-row kernel on the same chars (in range: flag 0, same codes)."""
     L = 152
     ul = 150 if form == "uniform" else None
+    B = {"b1": 1, "b7": 7, "b9": 9, "b65": 65, "odd_address": 63}.get(shape)
     before = dict(trim_cuda.LAUNCHES_BY_FORM)
+    tiled = trim_cuda.LAUNCHES_BY_PATH[wire]["tiled"]
     for k, params in enumerate(WIRE_PARAMS):
         qual = wire_quals(100 * p + k, 2048, L, p, rank=wire == "rank",
                           qualtype=params.qualtype, uniform=ul)
         buf, kw = _wire(qual, p, wire == "rank", params.qualtype)
-        want = wire_codes(torch.from_numpy(buf), p, L, params,
-                          uniform_len=ul, **kw)
-        got = trim_cuda.trim_cuts_wire(torch.from_numpy(buf).to(dev), p, L,
-                                       params, uniform_len=ul, **kw)
-        raw = trim_cuda.trim_cuts(torch.from_numpy(qual).to(dev), params,
-                                  uniform_len=ul)
+        qual, buf = torch.from_numpy(qual), torch.from_numpy(buf)
+        if B is not None:
+            qual, buf = qual[:B], buf[:B]
+        if shape == "buf[1:]":
+            qual, buf = qual[1:], buf[1:]
+        want = wire_codes(buf, p, L, params, uniform_len=ul, **kw)
+        buf = buf.to(dev)
+        if shape == "odd_address":
+            buf = _odd_address(buf)
+        got = trim_cuda.trim_cuts_wire(buf, p, L, params, uniform_len=ul,
+                                       **kw)
+        raw = trim_cuda.trim_cuts(qual.to(dev), params, uniform_len=ul)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want), (params, p)
         assert torch.equal(raw.cpu(), want), (params, p)
     assert (trim_cuda.LAUNCHES_BY_FORM[wire] - before[wire]
             == len(WIRE_PARAMS))
+    assert trim_cuda.LAUNCHES_BY_PATH[wire]["tiled"] - tiled == len(WIRE_PARAMS)
 
 
 def test_wire_device_step_ships_the_wire(dev):
