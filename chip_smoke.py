@@ -78,6 +78,23 @@ Phases (any failure raises, so the exit code is non-zero):
      case) gives the single-device fn's codes on every chunk of the se
      file, each piece launched as one block per shard.
    Wall times and rates are printed as records, not claims.
+6. The repo's tools (``sickle_tpu_torch.entry``, ``tools.kernel_verify``,
+   ``tools.bench``):
+   - ``entry()``: the single-device step on its example batch, five and
+     three equal to the plain version and the same ``first_bad <
+     lengths``; ``dryrun_multichip(2)`` over ``[cuda:0] * 2`` (one block
+     per shard, total == rows);
+   - ``kernel_verify.main`` at its full size: the four configs x generic
+     and uniform forms x raw, band and rank sources equal to the plain
+     version, the form times, and the device-variant files (-n, a NUL in
+     reads, 50 kbp, 30-33 kbp) equal under ``--cuts device`` and
+     ``--cuts host``;
+   - ``bench.main`` at ``--reads-scale 0.05 --passes 1``: its six cells in
+     four modes, its gate, and its JSON line.
+   The main-path launches of this phase are those of ``entry``, the dry
+   run and the bench's CLI runs (the bench reports the count of each run,
+   taken around it from the wrappers' counters); the verify tool's and
+   the bench's kernel timing are comparisons.
 
 Every main-path run must launch only the tiled kernel; launches are
 counted by form and by load path.  The last two lines of standard output
@@ -91,12 +108,9 @@ result.
 
 from __future__ import annotations
 
-import contextlib
-import io
 import json
 import os
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -124,12 +138,12 @@ def check(cond, msg):
 
 
 def phase_device(torch, trim_cuda):
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    from sickle_tpu_torch.utils.timing import card as card_of
+
+    try:
+        card = card_of()
+    except RuntimeError as e:
+        raise SmokeError(str(e))
     print(f"card: {card}", flush=True)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
@@ -211,6 +225,7 @@ def phase_kernels(torch, trim_cuda, dev, card, B=65536):
     from sickle_tpu_torch.constants import QUALITY_CONSTANTS, Compat, QualityType
     from sickle_tpu_torch.ops.trim import (
         TrimParams, compute_cuts, derive_lengths, trim_codes)
+    from sickle_tpu_torch.tools.kernel_verify import form_times, unpack
     from sickle_tpu_torch.utils.corpus import make_reads
 
     import numpy as np
@@ -269,7 +284,7 @@ def phase_kernels(torch, trim_cuda, dev, card, B=65536):
                     got = trim_cuda.trim_cuts(
                         qual, p, lengths=lens if explicit else None,
                         seq=seq, uniform_len=form)
-                    f, t, fl = _unpack(got)
+                    f, t, fl = unpack(got)
                     err = max(int((got - want).abs().max()),
                               int((f - five).abs().max()),
                               int((t - three).abs().max()),
@@ -291,27 +306,7 @@ def phase_kernels(torch, trim_cuda, dev, card, B=65536):
     seq, qual, _, _ = corpus("uniform", QualityType.SANGER)
     batches["raw"] = (seq, qual)
     print(f"kernel times on {card}:", flush=True)
-    return errs, _phase_times(torch, trim_cuda, batches)
-
-
-def _wire_args(np, qual, rank, qualtype, p=None):
-    """(wire rows, p, kernel args) of a qual matrix: the rank wire over
-    its distinct chars, or the band wire above its smallest char minus 1
-    (io/fastq.qual_fields), as the device step's plan builds them."""
-    from sickle_tpu_torch.constants import QUALITY_CONSTANTS
-    from sickle_tpu_torch.io.fastq import (
-        qual_fields, qual_levels, qual_rank_fields)
-
-    offset = QUALITY_CONSTANTS[qualtype][0]
-    levels = qual_levels(qual)
-    if rank:
-        p = p or levels.size.bit_length()
-        lut = np.zeros(1 << p, np.int32)
-        lut[1:1 + levels.size] = levels.astype(np.int32) - offset
-        return qual_rank_fields(qual, levels, p), p, dict(lut=lut)
-    bias = int(levels[0]) - 1
-    p = p or (int(levels[-1]) - bias).bit_length()
-    return qual_fields(qual, bias, p), p, dict(bias=bias - offset)
+    return errs, form_times(batches, log=lambda s: print(s, flush=True))
 
 
 def _phase_wire(torch, trim_cuda, dev, B):
@@ -321,10 +316,9 @@ def _phase_wire(torch, trim_cuda, dev, B):
     {form: (wire rows, p, kernel args)} of the main-path shapes)."""
     import dataclasses
 
-    import numpy as np
-
     from sickle_tpu_torch.constants import Compat, QualityType
     from sickle_tpu_torch.ops.trim import TrimParams, wire_codes
+    from sickle_tpu_torch.tools.kernel_verify import wire_args
     from sickle_tpu_torch.utils.corpus import make_reads, wire_quals
 
     L = 152
@@ -343,7 +337,7 @@ def _phase_wire(torch, trim_cuda, dev, B):
                         length=150 if kind == "uniform" else (30, 152),
                         width=L)
                     q[-1000:] = 0  # padding rows
-                    buf, pw, kw = _wire_args(np, q, form == "rank", p.qualtype)
+                    buf, pw, kw = wire_args(q, form == "rank", p.qualtype)
                     batches[key] = (torch.from_numpy(buf).to(dev),
                                     torch.from_numpy(q).to(dev), pw, kw,
                                     150 if kind == "uniform" else None)
@@ -366,7 +360,7 @@ def _phase_wire(torch, trim_cuda, dev, B):
             for ul in (None, 150):
                 q = wire_quals(900 + pw, 8192, L, pw, rank=form == "rank",
                                uniform=ul)
-                buf, _, kw = _wire_args(np, q, form == "rank", p.qualtype, pw)
+                buf, _, kw = wire_args(q, form == "rank", p.qualtype, pw)
                 buf = torch.from_numpy(buf).to(dev)
                 want = wire_codes(buf, pw, L, p, uniform_len=ul, **kw)
                 got = trim_cuda.trim_cuts_wire(buf, pw, L, p, uniform_len=ul,
@@ -432,6 +426,7 @@ def _phase_traps(torch, trim_cuda, dev):
 
     from sickle_tpu_torch.constants import QualityType
     from sickle_tpu_torch.ops.trim import TrimParams, trim_codes, wire_codes
+    from sickle_tpu_torch.tools.kernel_verify import wire_args
     from sickle_tpu_torch.utils.corpus import make_reads, wire_quals
 
     L = 152
@@ -455,8 +450,8 @@ def _phase_traps(torch, trim_cuda, dev):
             for ul in (None, 150):
                 q = wire_quals(700 + pw + (50 if ul else 0), n + 1, L, pw,
                                rank=form == "rank", uniform=ul)[:n]
-                buf, _, kw = _wire_args(np, q, form == "rank",
-                                        QualityType.SANGER, pw)
+                buf, _, kw = wire_args(q, form == "rank", QualityType.SANGER,
+                                       pw)
                 buf = torch.from_numpy(buf).to(dev)
                 views = [(f"B={b}", buf[:b]) for b in TRAP_ROWS]
                 views += [("buf[1:66]", buf[1:66]),
@@ -516,8 +511,8 @@ def _phase_traps(torch, trim_cuda, dev):
                      trim_codes(seq, qual, None, pn), path)
             else:
                 q = wire_quals(950 + Lx, 300, Lx, pw, rank=form == "rank")
-                buf, _, kw = _wire_args(np, q, form == "rank",
-                                        QualityType.SANGER, pw)
+                buf, _, kw = wire_args(q, form == "rank", QualityType.SANGER,
+                                       pw)
                 buf = torch.from_numpy(buf).to(dev)
                 held(form, f"L={Lx} p={pw}",
                      lambda: trim_cuda.trim_cuts_wire(buf, pw, Lx, pn, **kw),
@@ -532,200 +527,22 @@ def _phase_traps(torch, trim_cuda, dev):
     return errs
 
 
-# The card's peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s,
-# and the rate outside the tensor cores (the cut math is integer adds and
-# compares; the data sheet lists no integer rate outside them).
-HBM_BYTES_S = 3.35e12
-SCALAR_OPS_S = 67e12
-# integer ops per position the cut math needs at least: the running
-# prefix, the window test (two ops), the length and range compares (three)
-OPS_PER_POSITION = 6
-
-
-def _bound(B, L, row_bytes, seq=False):
-    """(least ms the card needs, "bytes" or "operations") for one batch:
-    every input byte read once (the rows, seq rows under -n) and the 4 B
-    code written once, against OPS_PER_POSITION ops per position."""
-    by = B * (row_bytes + 4 + (L if seq else 0)) / HBM_BYTES_S * 1e3
-    ops = B * L * OPS_PER_POSITION / SCALAR_OPS_S * 1e3
-    return (by, "bytes") if by >= ops else (ops, "operations")
-
-
-def _one_launch_ms(torch, fn, big, per=16, reps=5):
-    """ms per batch of one launch over ``per`` batches at once (more than
-    L2 holds), median of ``reps``."""
-    fn(big)
-    torch.cuda.synchronize()
-    samples = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn(big)
-        stop.record()
-        stop.synchronize()
-        samples.append(start.elapsed_time(stop) / per)
-    return statistics.median(samples)
-
-
-def _host_ms(torch, fn, x, reps=50):
-    """Median host time of one call (the enqueue: checks, allocation,
-    the ctypes call), the card idle before each."""
-    samples = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn(x)
-        samples.append((time.perf_counter() - t0) * 1e3)
-    torch.cuda.synchronize()
-    return statistics.median(samples)
-
-
-@contextlib.contextmanager
-def _direct_path(trim_cuda):
-    """Within the block every launch takes the direct kernel, the load
-    path of earlier runs, for an A/B in one call."""
-    tile_rows, layout = trim_cuda.tile_rows, trim_cuda._wire_layout
-    trim_cuda.tile_rows = lambda L, row_bytes, seq=False: 0
-    trim_cuda._wire_layout = lambda p, L: layout(p, L)[:2] + (0,)
-    try:
-        yield
-    finally:
-        trim_cuda.tile_rows, trim_cuda._wire_layout = tile_rows, layout
-
-
-def _phase_times(torch, trim_cuda, batches, B=65536, L=152):
-    """Each form's time per 65,536 x 152 batch three ways: 20 calls back
-    to back over 8 rotating batches (the figure of earlier runs), one
-    launch over 16 x 65,536 rows divided by 16, and the host time of one
-    call; beside its plain version, its bound and share of bound.  The
-    first two are taken in turns with the direct kernel on the same
-    inputs (direct, tiled, tiled, direct; each the mean of its turns)."""
-    from sickle_tpu_torch.ops.trim import TrimParams, trim_codes, wire_codes
-
-    p, pn = TrimParams(), TrimParams(trunc_n=True)
-    seq, qual = batches["raw"]
-    cases = {  # name: (kernel fn, plain fn, args, row bytes, -n)
-        "raw_uniform": (lambda x: trim_cuda.trim_cuts(x[0], p, uniform_len=150),
-                        lambda x: trim_codes(None, x[0], None, p, 150),
-                        (qual,), L, False),
-        "raw_generic": (lambda x: trim_cuda.trim_cuts(x[0], p),
-                        lambda x: trim_codes(None, x[0], None, p),
-                        (qual,), L, False),
-        "raw_trunc_n": (lambda x: trim_cuda.trim_cuts(x[0], pn, seq=x[1]),
-                        lambda x: trim_codes(x[1], x[0], None, pn),
-                        (qual, seq), L, True),
-        "raw_uniform_trunc_n": (
-            lambda x: trim_cuda.trim_cuts(x[0], pn, seq=x[1], uniform_len=150),
-            lambda x: trim_codes(x[1], x[0], None, pn, 150),
-            (qual, seq), L, True),
-    }
-    for form in ("band", "rank"):
-        buf, pw, kw = batches[form]
-        cases[form] = (
-            lambda x, pw=pw, kw=kw: trim_cuda.trim_cuts_wire(
-                x[0], pw, L, p, uniform_len=150, **kw),
-            lambda x, pw=pw, kw=kw: wire_codes(x[0], pw, L, p,
-                                               uniform_len=150, **kw),
-            (buf,), buf.shape[1], False)
-    times = {}
-    for name, (fn, plain, args, row_bytes, trunc) in cases.items():
-        rot = [tuple(a.clone() for a in args) for _ in range(8)]
-        big = tuple(a.repeat(16, 1) for a in args)
-        want = fn(big)
-        check(torch.equal(want[:B], fn(args)), f"{name}: 16 batches at once "
-              f"disagree with one")
-        with _direct_path(trim_cuda):
-            check(torch.equal(fn(big), want), f"{name}: the direct kernel "
-                  f"disagrees with the tiled one")
-        turns = {"tiled": [], "direct": []}
-        for path in ("direct", "tiled", "tiled", "direct"):
-            with (_direct_path(trim_cuda) if path == "direct"
-                  else contextlib.nullcontext()):
-                turns[path].append((_time_ms(torch, fn, rot),
-                                    _one_launch_ms(torch, fn, big)))
-        mean = {k: [statistics.mean(x) for x in zip(*v)]
-                for k, v in turns.items()}
-        t = {"ms": mean["tiled"][0], "one_launch_ms": mean["tiled"][1],
-             "direct_ms": mean["direct"][0],
-             "direct_one_launch_ms": mean["direct"][1],
-             "host_ms": _host_ms(torch, fn, args),
-             "plain_ms": _time_ms(torch, plain, rot, reps=3, iters=5)}
-        t["bound_ms"], t["bound_by"] = _bound(B, L, row_bytes, trunc)
-        times[name] = t
-        del big, want
-        print(f"time per 65,536 x 152 batch, {name} ({row_bytes} B/row"
-              f"{' + 152 B seq' if trunc else ''}): 20 calls {t['ms']:.4f} ms "
-              f"(direct kernel {t['direct_ms']:.4f}), one launch over 16 "
-              f"batches {t['one_launch_ms']:.4f} ms (direct "
-              f"{t['direct_one_launch_ms']:.4f}), host {t['host_ms']:.4f} ms "
-              f"per call; bound {t['bound_ms']:.5f} ms ({t['bound_by']}), "
-              f"share of bound {100 * t['bound_ms'] / t['one_launch_ms']:.1f}% "
-              f"(one launch), {100 * t['bound_ms'] / t['ms']:.1f}% (20 calls); "
-              f"plain PyTorch {t['plain_ms']:.4f} ms", flush=True)
-    return times
-
-
-def _unpack(codes):
-    """(five, three, flag) from the kernel's packed or [3, B] result."""
-    if codes.dim() == 2:
-        return codes[0], codes[1], codes[2]
-    return (codes >> 16) - 1, (codes & 0x7FFF) - 1, (codes >> 15) & 1
-
-
-def _time_ms(torch, fn, bufs, reps=7, iters=20):
-    for b in bufs:
-        fn(b)
-    torch.cuda.synchronize()
-    samples = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for i in range(iters):
-            fn(bufs[i % len(bufs)])
-        stop.record()
-        stop.synchronize()
-        samples.append(start.elapsed_time(stop) / iters)
-    return statistics.median(samples)
-
-
-def _run_cli(cli, argv, device):
-    out = io.TextIOWrapper(io.BytesIO())
-    err = io.TextIOWrapper(io.BytesIO())
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-        rc = cli.main(argv, device=device)
-    wall = time.perf_counter() - t0
-    out.flush()
-    err.flush()
-    return rc, out.buffer.getvalue().decode(), err.buffer.getvalue().decode(), wall
-
-
-# --cuts modes of the e2e turns: (CLI flags, environment)
-MODES = {
-    "host": (["--cuts", "host"], {}),
-    "device": (["--cuts", "device"], {}),
-    "auto": ([], {}),
-    "raw": (["--cuts", "device"], {"SICKLE_TPU_NO_PLANES": "1"}),
-}
-
-
 # main-path launches by form and load path, summed over every _run_mode
 MAIN_PATHS = {form: {"tiled": 0, "direct": 0} for form in ("raw", "band", "rank")}
 
 
 def _run_mode(trim_cuda, cli, argv, mode, device):
-    """One CLI run in ``mode`` with --metrics, launch counts set to 0 just
-    before it; returns (rc, stdout, stderr, wall, metrics, launches)."""
-    flags, env = MODES[mode]
-    os.environ.update(env)
+    """One CLI run in ``mode`` (the bench's ``--cuts`` modes: ``host``,
+    ``device``, ``auto``, ``raw``) with --metrics, launch counts set to 0
+    just before it; returns (rc, stdout, stderr, wall, metrics,
+    launches)."""
+    from sickle_tpu_torch.tools.bench import MODES, mode_env
+    from sickle_tpu_torch.utils.timing import run_cli
+
     trim_cuda.reset_counts()
-    try:
-        rc, so, se, wall = _run_cli(cli, argv + ["--metrics"] + flags, device)
-    finally:
-        for k in env:
-            os.environ.pop(k, None)
+    with mode_env(mode):
+        rc, so, se, wall = run_cli(cli, argv + ["--metrics"] + MODES[mode][0],
+                                   device)
     launches = dict(trim_cuda.LAUNCHES_BY_FORM)
     for form, by_path in trim_cuda.LAUNCHES_BY_PATH.items():
         for path, k in by_path.items():
@@ -1345,10 +1162,125 @@ def phase_dist(trim_cuda, card, device, workdir, src, pe_inputs):
     return launches
 
 
+def _tiled_only(trim_cuda, what, by_path):
+    """Add one phase-6 run's launches (by form and load path) to the
+    main-path counts; each must have taken the tiled kernel."""
+    for form, paths in by_path.items():
+        check(paths.get("direct", 0) == 0, f"{what} left the tiled kernel: "
+              f"{by_path}")
+        for path, k in paths.items():
+            MAIN_PATHS[form][path] += k
+    return {form: sum(paths.values()) for form, paths in by_path.items()}
+
+
+def phase_tools(trim_cuda, device, workdir):
+    """Phase 6: the single-device step and the multi-device dry run
+    (``entry``), the kernel-verify tool at full size and the bench at a
+    small scale, each through the function a user's ``python -m`` runs."""
+    import contextlib
+    import io
+
+    import torch
+
+    from sickle_tpu_torch import entry as entry_mod
+    from sickle_tpu_torch.ops.trim import compute_cuts
+    from sickle_tpu_torch.tools import bench, kernel_verify
+
+    launches = {"raw": 0, "band": 0, "rank": 0}
+
+    def add(counts):
+        for form, k in counts.items():
+            launches[form] += k
+
+    def by_path():
+        return {f: dict(v) for f, v in trim_cuda.LAUNCHES_BY_PATH.items()
+                if sum(v.values())}
+
+    t0 = time.perf_counter()
+    trim_cuda.reset_counts()
+    fn, args = entry_mod.entry(device)
+    five, three, bad = fn(*args)
+    torch.cuda.synchronize()
+    counts = _tiled_only(trim_cuda, "entry()", by_path())
+    check(counts == {"raw": 1}, f"entry() launched {counts}")
+    add(counts)
+    seq, qual, lens = args
+    pf, pt, pb = compute_cuts(seq, qual, lens, entry_mod.PARAMS)
+    check(torch.equal(five, pf) and torch.equal(three, pt)
+          and torch.equal(bad < lens, pb < lens),
+          "entry() disagrees with the plain version")
+    trim_cuda.reset_counts()
+    entry_mod.dryrun_multichip(2, device)
+    counts = _tiled_only(trim_cuda, "dryrun_multichip(2)", by_path())
+    check(counts == {"raw": 2}, f"dryrun_multichip(2) launched {counts}")
+    add(counts)
+    print(f"entry: {tuple(five.shape)} rows equal the plain version "
+          f"({int((three >= 0).sum())} kept); dryrun_multichip(2) over "
+          f"[{device}] * 2: one block per shard, total == rows "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    kv_path = os.path.join(workdir, "kernel_verify.json")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = kernel_verify.main([kv_path], device=device)
+    check(rc == 0, f"kernel_verify exited {rc}: {out.getvalue()[-3000:]}")
+    with open(kv_path) as f:
+        kv = json.load(f)
+    check(kv["equal"] and all(c["max_abs_err"] == 0 for c in kv["configs"]),
+          "kernel_verify: a case is not equal")
+    for v in kv["variants"]:
+        check(v["equal"] and v["launches"], f"kernel_verify variant {v}")
+    print(f"kernel_verify: {len(kv['configs'])} config x form x source cases "
+          f"equal (tolerance 0); variants "
+          + "; ".join(f"{v['name']} device {v['device_s']:.3f} s, host "
+                      f"{v['host_s']:.3f} s, launches {v['launches']}"
+                      for v in kv["variants"])
+          + f"; all equal under --cuts device and host "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    for name, t in kv["times"].items():
+        print(f"  kernel_verify {name}: {t['ms']:.4f} ms (direct "
+              f"{t['direct_ms']:.4f}), one launch {t['one_launch_ms']:.4f}, "
+              f"host {t['host_ms']:.4f} ms, bound {t['bound_ms']:.5f}",
+              flush=True)
+
+    t0 = time.perf_counter()
+    trim_cuda.reset_counts()
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = bench.main(["--reads-scale", "0.05", "--passes", "1"],
+                        device=device)
+    check(rc == 0, f"bench exited {rc}: {err.getvalue()[-3000:]}")
+    line = json.loads(out.getvalue().splitlines()[-1])
+    em = line["extra_metrics"]
+    check(line["metric"] == "se_reads_per_s" and line["value"] > 0
+          and em["gate"] and len(em["cells"]) == 6,
+          f"bench line: {out.getvalue()[-2000:]}")
+    counts = _tiled_only(trim_cuda, "the bench", em["main_path_launches"])
+    for form, paths in em["main_path_launches"].items():
+        for path, k in paths.items():
+            check(k <= trim_cuda.LAUNCHES_BY_PATH[form][path],
+                  "the bench reports more launches than were counted")
+    check(all(counts.get(f) for f in launches),
+          f"the bench did not launch every form: {counts}")
+    add(counts)
+    print(f"bench (reads-scale 0.05, 1 pass): se_uniform auto "
+          f"{line['value']:.0f} reads/s, vs host {line['vs_host']:.3f}; "
+          + "; ".join(f"{c} auto {r['modes']['auto']['median']:.0f} "
+                      f"{r['unit']}" for c, r in em["cells"].items())
+          + f"; fresh se process {em['fresh_process']['se_s']:.3f} s, "
+          f"--version {em['fresh_process']['version_s']:.3f} s; gate held; "
+          f"launches {counts} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return launches
+
+
 def _metrics(stderr: str) -> dict:
-    lines = [ln for ln in stderr.splitlines() if ln.startswith("metrics: ")]
-    check(lines, "a --metrics run printed no metrics line")
-    return json.loads(lines[-1][len("metrics: "):])
+    from sickle_tpu_torch.tools.bench import BenchError, metrics
+
+    try:
+        return metrics(stderr)
+    except BenchError as e:
+        raise SmokeError(str(e))
 
 
 def _device_busy(trace_path: str) -> str:
@@ -1426,6 +1358,9 @@ def main() -> int:
                                   pe_inputs).items():
             launches[form] += n
         mark(5)
+        for form, n in phase_tools(trim_cuda, dev, workdir).items():
+            launches[form] += n
+        mark(6)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for form in ("raw", "band", "rank"):

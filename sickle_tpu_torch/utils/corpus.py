@@ -13,7 +13,9 @@ Records are ``@r<9 digits>`` / seq / ``+`` / qual, so the whole file is
 assembled with array scatters, in chunks.  ``write_pairs`` writes read
 pairs, as two mate files or one interleaved file: the mates of a pair
 share their name, and each mate can have its own length model (2x150,
-150/100, ragged 30-160).
+150/100, ragged 30-160).  ``edge_fastq`` gives small files with one odd
+or malformed feature each (``EDGES``), the inputs where a reader or a
+device path is most likely to part from the reference.
 """
 
 from __future__ import annotations
@@ -213,3 +215,42 @@ def write_pairs(f1, f2, seed: int, n: int, *, mate1: Optional[dict] = None,
         f1.write(data)
         total += len(data)
     return total
+
+
+# odd or malformed inputs of edge_fastq
+EDGES = ("crlf", "no_plus", "truncated", "multiline", "empty_read", "nul")
+
+
+def edge_fastq(edge: str, seed: int, n: int = 40, **kw) -> bytes:
+    """FASTQ text of ``n`` reads of ``make_reads(seed, n, **kw)`` with one
+    feature of ``EDGES``: CRLF line ends (``crlf``), the middle record's
+    ``+`` line missing (``no_plus``), the last record cut after its
+    sequence line (``truncated``), the middle record's sequence and
+    quality each wrapped over two lines (``multiline``), the middle read
+    of length 0 (``empty_read``), or a NUL quality char past the 3' cut
+    of a share of the reads (``nul``: ``bad_tail``'s chars, 0.1 of the
+    reads unless given, become NUL, so the reads are clean to the scan
+    but not to the zero-padding length rule)."""
+    if edge not in EDGES:
+        raise ValueError(f"no edge {edge!r}; one of {EDGES}")
+    if edge == "nul":
+        kw.setdefault("bad_tail", 0.1)
+    seq, qual, lengths = make_reads(seed, n, **kw)
+    mid = n // 2
+    if edge == "nul":
+        qual[qual > QUALITY_CONSTANTS[kw.get("qualtype", QualityType.SANGER)][2]] = 0
+    if edge == "empty_read":
+        lengths[mid] = 0
+    data = fastq_bytes(seq, qual, lengths)
+    if edge == "crlf":
+        return data.replace(b"\n", b"\r\n")
+    lines = data.split(b"\n")[:-1]
+    if edge == "no_plus":
+        del lines[4 * mid + 2]
+    elif edge == "truncated":
+        del lines[-2:]
+    elif edge == "multiline":
+        s, q = lines[4 * mid + 1], lines[4 * mid + 3]
+        h = len(s) // 2
+        lines[4 * mid + 1: 4 * mid + 4] = [s[:h], s[h:], b"+", q[:h], q[h:]]
+    return b"\n".join(lines) + b"\n"

@@ -14,7 +14,7 @@ import pytest
 import sickle_tpu.cli as jax_cli
 import sickle_tpu_torch.cli as torch_cli
 from sickle_tpu_torch.constants import QualityType
-from sickle_tpu_torch.utils.corpus import write_fastq
+from sickle_tpu_torch.utils.corpus import EDGES, edge_fastq, write_fastq
 
 CORPORA = {
     # name: (qual type, generator options)
@@ -277,3 +277,25 @@ def test_usage_and_errors_match(argv, capsysbinary):
         assert got[1].splitlines()[:-1] == want[1].splitlines()[:-1]
     else:
         assert got == want
+
+
+@pytest.mark.parametrize("cuts", ["device", "host"])
+@pytest.mark.parametrize("edge", EDGES)
+def test_edge_inputs_match_jax_package(edge, cuts, tmp_path, capsysbinary):
+    """One small file per odd or malformed input (``corpus.edge_fastq``):
+    exit code, standard output and error, and output bytes equal the JAX
+    package's, with default flags and with ``-n``."""
+    src = tmp_path / f"{edge}.fastq"
+    src.write_bytes(edge_fastq(edge, 500 + EDGES.index(edge), n_rate=0.02))
+    if edge == "nul":
+        assert b"\0" in src.read_bytes()
+    for flags in ([], ["-n"]):
+        argv = ["se", "-f", str(src), "-t", "sanger"] + flags
+        outs = [str(tmp_path / f"{tag}.out.fastq") for tag in ("jax", "torch")]
+        want = run(jax_cli.main, argv + ["-o", outs[0]], capsysbinary)
+        got = run(lambda a: torch_cli.main(a, device="cpu"),
+                  argv + ["-o", outs[1], "--cuts", cuts], capsysbinary)
+        assert got == want, flags
+        if want[0] == 0:
+            with open(outs[0], "rb") as a, open(outs[1], "rb") as b:
+                assert a.read() == b.read(), flags

@@ -4,6 +4,7 @@ Each test runs the port in a fresh interpreter, so nothing this test
 process imported can hide an import the port makes.
 """
 
+import json
 import os
 import pathlib
 import subprocess
@@ -125,6 +126,32 @@ print(sorted(m for m in sys.modules
     r = _python(code, REPO)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "[]"
+
+
+def test_tools_import_without_jax_and_need_a_card(tmp_path):
+    """The entry module, the bench, the kernel-verify tool, the timing
+    helpers and the Galaxy test-data module load neither JAX nor the JAX
+    package; without a card each tool's ``main`` exits 1 (no CPU
+    fallback) and writes nothing."""
+    code = """
+import json, sys
+import torch
+import sickle_tpu_torch.galaxy
+from sickle_tpu_torch import entry
+from sickle_tpu_torch.tools import bench, kernel_verify
+from sickle_tpu_torch.utils import timing
+rcs = (None if torch.cuda.is_available()
+       else [entry.main(), bench.main([]), kernel_verify.main([])])
+print(json.dumps([rcs, sorted(m for m in sys.modules if m.split(".")[0]
+                              in ("jax", "jaxlib", "sickle_tpu"))]))
+"""
+    r = _python(code, tmp_path)
+    assert r.returncode == 0, r.stderr
+    rcs, loaded = json.loads(r.stdout.splitlines()[-1])
+    assert loaded == []
+    if rcs is not None:
+        assert rcs == [1, 1, 1]
+        assert os.listdir(tmp_path) == []
 
 
 def test_dist_cluster_runs_without_jax(small_fastq):
