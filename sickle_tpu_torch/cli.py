@@ -25,6 +25,7 @@ import dataclasses
 import getopt
 import os
 import sys
+import time
 from typing import List, Optional
 
 import torch
@@ -41,6 +42,8 @@ from .io import native
 from .io.compression import open_input, open_output
 from .oracle import PECounters, SECounters, SickleError
 from .ops import TrimParams
+from .utils import metrics as _metrics
+from .utils.metrics import Metrics
 
 
 def _merge_counters(counters):
@@ -324,6 +327,7 @@ def _refused(cuts_mode: str, device: torch.device) -> Optional[int]:
 
 
 _ACTIVE_CUTS_FN = None  # last built cuts fn; its workers stop in _finish
+_REPORT = None  # the call's --metrics recorder, reported in _finish
 
 
 def _build_cuts_fn(params: TrimParams, mode: str, device: torch.device,
@@ -423,7 +427,9 @@ def _checkpoint_path(base: str) -> str:
 class _Profile:
     """--profile DIR: a torch.profiler trace of the run, written as
     ``DIR/<name>`` (Chrome trace format): ``trace.json``, or
-    ``trace.rank<i>.json`` in each process of a --dist run."""
+    ``trace.rank<i>.json`` in each process of a --dist run.  It records
+    every thread the run starts, so with --metrics the engine's spans
+    land on their threads."""
 
     def __init__(self, trace_dir: Optional[str], device: torch.device,
                  name: str = "trace.json"):
@@ -439,7 +445,13 @@ class _Profile:
             acts = [ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 acts.append(ProfilerActivity.CUDA)
-            self._prof = profile(activities=acts)
+            try:
+                from torch.profiler import _ExperimentalConfig
+
+                config = _ExperimentalConfig(profile_all_threads=True)
+            except (ImportError, TypeError):  # a torch without the option
+                config = None
+            self._prof = profile(activities=acts, experimental_config=config)
             self._prof.__enter__()
         return self
 
@@ -452,7 +464,42 @@ class _Profile:
         return False
 
 
+def _call(body, argv: List[str], device: torch.device) -> int:
+    """Run one CLI call's ``body``; its --metrics recorder is the slot's
+    (``utils.metrics.install``) for the duration of the call."""
+    global _REPORT
+    _REPORT = None
+    try:
+        return body(argv, device, time.perf_counter_ns())
+    finally:
+        _metrics.install(None)
+
+
+def _start_metrics(cfg: EngineConfig, t0: int, t_parsed: int) -> None:
+    """--metrics: the call's recorder, with the spans it missed."""
+    cfg.metrics = mtr = Metrics()
+    mtr.add_span("call.parse", t0, t_parsed)
+    mtr.add_span("call.build_cuts_fn", t_parsed, time.perf_counter_ns())
+    _metrics.install(mtr)
+
+
+def _end_metrics(cfg: EngineConfig) -> None:
+    """The call is done: report once ``_finish`` has stopped the router."""
+    global _REPORT
+    if cfg.metrics is not None:
+        cfg.metrics.stop()
+        _REPORT = cfg.metrics
+
+
 def se_main(argv: List[str], device: torch.device) -> int:
+    return _call(_se_main, argv, device)
+
+
+def pe_main(argv: List[str], device: torch.device) -> int:
+    return _call(_pe_main, argv, device)
+
+
+def _se_main(argv: List[str], device: torch.device, t0: int) -> int:
     longopts = [
         "fastq-file=", "output-file=", "qual-type=", "qual-threshold=",
         "length-threshold=", "no-fiveprime", "discard-n", "gzip-output",
@@ -571,11 +618,10 @@ def se_main(argv: List[str], device: torch.device) -> int:
     dist = _Dist(dist_on, coordinator, n_procs, proc_id)
     cfg = EngineConfig(records_per_chunk=_records_per_chunk(batch_mb),
                        compat=compat)
+    t_parsed = time.perf_counter_ns()
     cuts_fn = _build_cuts_fn(params, cuts_mode, device, cfg, devices)
     if metrics_on:
-        from .utils.metrics import Metrics
-
-        cfg.metrics = Metrics()
+        _start_metrics(cfg, t0, t_parsed)
     in_off = 0
     if dist.active:
         err = dist.check_splittable(infn)
@@ -605,7 +651,8 @@ def se_main(argv: List[str], device: torch.device) -> int:
             if in_off:
                 fin.seek(in_off)
             if ck is not None:
-                out = _open_resumable(outfn, gzip_out)
+                with _metrics.span("call.open_outputs"):
+                    out = _open_resumable(outfn, gzip_out)
                 if st is not None:
                     resume_outputs(st, {outfn: out})
                     counters_in = SECounters(**st.counters)
@@ -615,14 +662,17 @@ def se_main(argv: List[str], device: torch.device) -> int:
                     ck, dataclasses.asdict, {outfn: out}
                 )
             else:
-                out = open_output(outfn, gzip_out)
+                with _metrics.span("call.open_outputs"):
+                    out = open_output(outfn, gzip_out)
             try:
-                with _Profile(profile, device, dist.trace_name):
+                with (_Profile(profile, device, dist.trace_name),
+                      _metrics.span("engine")):
                     counters = run_se(fin, out, params, cfg=cfg,
                                       cuts_fn=cuts_fn, counters=counters_in)
             finally:
                 if out is not sys.stdout.buffer:
-                    out.close()
+                    with _metrics.span("call.close_outputs"):
+                        out.close()
     except FileNotFoundError:
         sys.stderr.write(f"****Error: Could not open input file '{infn}'.\n\n")
         return 1
@@ -630,8 +680,7 @@ def se_main(argv: List[str], device: torch.device) -> int:
         sys.stderr.write(e.message + "\n")
         return e.exit_code
 
-    if cfg.metrics is not None:
-        cfg.metrics.report()
+    _end_metrics(cfg)
     counters = _merge_counters(counters)
     if counters is None:
         return 1
@@ -645,7 +694,7 @@ def se_main(argv: List[str], device: torch.device) -> int:
     return 0
 
 
-def pe_main(argv: List[str], device: torch.device) -> int:
+def _pe_main(argv: List[str], device: torch.device, t0: int) -> int:
     longopts = [
         "qual-type=", "pe-file1=", "pe-file2=", "pe-interleaved=",
         "output-pe1=", "output-pe2=", "output-single=", "output-interleaved=",
@@ -807,11 +856,10 @@ def pe_main(argv: List[str], device: torch.device) -> int:
     dist = _Dist(dist_on, coordinator, n_procs, proc_id)
     cfg = EngineConfig(records_per_chunk=_records_per_chunk(batch_mb),
                        compat=compat)
+    t_parsed = time.perf_counter_ns()
     cuts_fn = _build_cuts_fn(params, cuts_mode, device, cfg, devices)
     if metrics_on:
-        from .utils.metrics import Metrics
-
-        cfg.metrics = Metrics()
+        _start_metrics(cfg, t0, t_parsed)
     in_off = in_off2 = 0
     if dist.active:
         err = dist.check_splittable(infnc, infn, infn2)
@@ -875,10 +923,12 @@ def pe_main(argv: List[str], device: torch.device) -> int:
             with open_input(infnc) as fin:
                 if in_off:
                     fin.seek(in_off)
-                o1 = out_stream(outfnc)
-                so = out_stream(sfn) if sfn else None
+                with _metrics.span("call.open_outputs"):
+                    o1 = out_stream(outfnc)
+                    so = out_stream(sfn) if sfn else None
                 apply_resume()
-                with _Profile(profile, device, dist.trace_name):
+                with (_Profile(profile, device, dist.trace_name),
+                      _metrics.span("engine")):
                     counters = run_pe(
                         fin, None, interleaved=True,
                         out1=o1,
@@ -895,11 +945,13 @@ def pe_main(argv: List[str], device: torch.device) -> int:
                     f1.seek(in_off)
                 if in_off2:
                     f2.seek(in_off2)
-                o1 = out_stream(outfn)
-                o2 = out_stream(outfn2)
-                so = out_stream(sfn)
+                with _metrics.span("call.open_outputs"):
+                    o1 = out_stream(outfn)
+                    o2 = out_stream(outfn2)
+                    so = out_stream(sfn)
                 apply_resume()
-                with _Profile(profile, device, dist.trace_name):
+                with (_Profile(profile, device, dist.trace_name),
+                      _metrics.span("engine")):
                     counters = run_pe(
                         f1, f2, interleaved=False,
                         out1=o1,
@@ -915,12 +967,12 @@ def pe_main(argv: List[str], device: torch.device) -> int:
         sys.stderr.write(e.message + "\n")
         return e.exit_code
     finally:
-        for s in outs:
-            if s is not sys.stdout.buffer:
-                s.close()
+        with _metrics.span("call.close_outputs"):
+            for s in outs:
+                if s is not sys.stdout.buffer:
+                    s.close()
 
-    if cfg.metrics is not None:
-        cfg.metrics.report()
+    _end_metrics(cfg)
     counters = _merge_counters(counters)
     if counters is None:
         return 1
@@ -976,14 +1028,18 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
 
 
 def _finish(rc: int) -> int:
-    """Stop the hybrid fn's workers, then leave the --dist process group,
-    before interpreter teardown.  If a worker is WEDGED in a device call
-    that never returns, exit hard with the real return code: all
-    user-visible output is already flushed."""
-    global _ACTIVE_CUTS_FN
+    """Stop the hybrid fn's workers, print the --metrics report, then
+    leave the --dist process group, before interpreter teardown.  If a
+    worker is WEDGED in a device call that never returns, exit hard with
+    the real return code: all user-visible output is already flushed."""
+    global _ACTIVE_CUTS_FN, _REPORT
     fn, _ACTIVE_CUTS_FN = _ACTIVE_CUTS_FN, None
+    mtr, _REPORT = _REPORT, None
     close = getattr(fn, "close", None)
-    closed = close is None or close() is not False
+    with _metrics.span("call.close_cuts_fn", mtr):
+        closed = close is None or close() is not False
+    if mtr is not None:
+        mtr.report()
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():

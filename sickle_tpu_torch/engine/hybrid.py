@@ -40,6 +40,7 @@ import torch
 
 from ..ops import TrimParams
 from ..ops.trim_host import compute_cuts_host
+from ..utils import metrics as _metrics
 
 _SENTINEL = object()
 
@@ -387,7 +388,8 @@ class HybridCutsFn:
                 return
             try:
                 t0 = time.monotonic()
-                result = self._host_compute(slot.job)
+                with _metrics.span("router.host"):
+                    result = self._host_compute(slot.job)
                 ms = (time.monotonic() - t0) * 1e3
                 e = self.ewma_host_ms
                 self.ewma_host_ms = ms if e is None else 0.7 * e + 0.3 * ms
@@ -415,7 +417,9 @@ class HybridCutsFn:
         local: deque = deque()
         while True:
             try:
-                slot = self._device_q.get(timeout=0.002 if local else None)
+                with _metrics.span("wait.device_q"):
+                    slot = self._device_q.get(
+                        timeout=0.002 if local else None)
             except queue.Empty:
                 slot = None
             if slot is _SENTINEL:
@@ -426,8 +430,10 @@ class HybridCutsFn:
                 _, seq, qual, lengths, qual_clean, wire = slot.job
                 try:
                     t0 = time.monotonic()
-                    result = self.device_fn(seq, qual, lengths,
-                                            qual_clean=qual_clean, wire=wire)
+                    with _metrics.span("router.device"):  # H2D and launch
+                        result = self.device_fn(seq, qual, lengths,
+                                                qual_clean=qual_clean,
+                                                wire=wire)
                     local.append((slot, result, t0))
                 except BaseException as e:
                     slot.fill("err", e)
@@ -441,7 +447,9 @@ class HybridCutsFn:
 
         try:
             n = slot.job[2].shape[0]
-            slot.fill("ok", _materialize(result, n))
+            with _metrics.span("router.device"):  # the event wait and D2H
+                codes = _materialize(result, n)
+            slot.fill("ok", codes)
             ms = (time.monotonic() - t0) * 1e3
             e = self.ewma_dev_ms
             self.ewma_dev_ms = ms if e is None else 0.7 * e + 0.3 * ms

@@ -60,6 +60,7 @@ from ..oracle import (
     sliding_window_cuts,
 )
 from ..ops.trim import BIG, MAX_PACKED_L, TrimParams
+from ..utils import metrics as _metrics
 from ..utils.metrics import Metrics, maybe as _stage
 from .chunker import iter_record_chunks
 
@@ -92,58 +93,62 @@ def _plan_assemble_fast(out_stream, packed, five, three, compat,
     dropped (pe pair/single routing: the caller selects which records
     this stream gets by masking, order preserved).
 
-    Returns ``(kept, bytes)`` or ``(None, 0)`` when the chunk/stream
-    can't take the fused path (no reserve protocol, no stride-4 index
+    Returns the records kept, or None when the chunk/stream can't take
+    the fused path (no reserve protocol, no stride-4 index
     layout, numpy fallback mode)."""
     reserve = getattr(out_stream, "reserve", None)
     lib = native.get_lib()
     n = packed.n_records
     idx = _idx_layout(packed) if n else None
     if reserve is None or lib is None or n == 0 or idx is None:
-        return (None, 0) if n else (0, 0)
+        return None if n else 0
     import ctypes
 
-    ns_view, nl_view = idx
-    three = np.ascontiguousarray(three, np.int32)
-    if three_mask is not None:
-        three = np.where(three_mask, three, -1).astype(np.int32)
-    five = np.ascontiguousarray(five, np.int32)
-    # output bound: each record's emission never exceeds its source
-    # extent +1 (a rewritten '+' can outgrow an EMPTY comment line);
-    # the span end is the last record's qual line end (qual len == seq
-    # len == lengths[n-1] by validation)
-    cap = (int(packed.qual_start[n - 1]) + int(packed.lengths[n - 1]) + 1
-           - int(packed.name_start[0])) + n
-    buf, start = reserve(cap)
-    out_kept = np.zeros(1, np.int64)
-    s4 = ctypes.cast(ns_view.ctypes.data, ctypes.POINTER(ctypes.c_int64))
-    l4 = ctypes.cast(nl_view.ctypes.data, ctypes.POINTER(ctypes.c_int32))
-    total = lib.sk_plan_assemble(
-        native.ptr(packed.data, ctypes.c_uint8), s4, l4,
-        native.ptr(five, ctypes.c_int32),
-        native.ptr(three, ctypes.c_int32),
-        n, 1 if compat == Compat.V133 else 0,
-        native.ptr(buf[start:], ctypes.c_uint8),
-        native.ptr(out_kept, ctypes.c_int64),
-        native.N_THREADS,
-    )
-    out_stream.commit(int(total))
-    return int(out_kept[0]), int(total)
+    with _metrics.span("assemble"):
+        ns_view, nl_view = idx
+        three = np.ascontiguousarray(three, np.int32)
+        if three_mask is not None:
+            three = np.where(three_mask, three, -1).astype(np.int32)
+        five = np.ascontiguousarray(five, np.int32)
+        # output bound: each record's emission never exceeds its source
+        # extent +1 (a rewritten '+' can outgrow an EMPTY comment line);
+        # the span end is the last record's qual line end (qual len ==
+        # seq len == lengths[n-1] by validation)
+        cap = (int(packed.qual_start[n - 1]) + int(packed.lengths[n - 1])
+               + 1 - int(packed.name_start[0])) + n
+        buf, start = reserve(cap)
+        out_kept = np.zeros(1, np.int64)
+        s4 = ctypes.cast(ns_view.ctypes.data, ctypes.POINTER(ctypes.c_int64))
+        l4 = ctypes.cast(nl_view.ctypes.data, ctypes.POINTER(ctypes.c_int32))
+        total = lib.sk_plan_assemble(
+            native.ptr(packed.data, ctypes.c_uint8), s4, l4,
+            native.ptr(five, ctypes.c_int32),
+            native.ptr(three, ctypes.c_int32),
+            n, 1 if compat == Compat.V133 else 0,
+            native.ptr(buf[start:], ctypes.c_uint8),
+            native.ptr(out_kept, ctypes.c_int64),
+            native.N_THREADS,
+        )
+        out_stream.commit(int(total))
+    return int(out_kept[0])
 
 
-def _emit_records(out_stream, data, fields, five, three, compat, qualtype,
-                  outbuf, n_record_mask=None) -> int:
-    """Assemble one chunk's (already filtered/ordered) records and emit
-    them to ``out_stream``; returns bytes written.
+def _assembled(out_stream, data, fields, five, three, compat, qualtype,
+               outbuf, n_record_mask=None):
+    """Assemble one chunk's (already filtered/ordered) records for
+    ``out_stream``: the bytes to write (a view of ``outbuf``, which the
+    next assembly reuses), or None when they are already in the stream.
 
     Streams exposing the ``reserve``/``commit`` protocol (io.output.
     MmapWriter) get records scattered straight into the output file's
     mapped pages — no intermediate buffer, no ``write(2)`` copy (the
     reference pays both: src/trim_single.cpp:390-419).  Everything else
-    takes the classic assemble-then-write path."""
+    takes the classic assemble-then-write path.  Callers time the
+    assembly, with its record selection, as an ``assemble`` span and
+    write after it (``_write``), so a writer's flush is not assembly."""
     k = fields["name_start"].size
     if k == 0:
-        return 0
+        return None
     reserve = getattr(out_stream, "reserve", None)
     if reserve is not None and native.available():
         sizes = record_out_sizes(fields["name_len"], fields["comment_len"],
@@ -159,13 +164,16 @@ def _emit_records(out_stream, data, fields, five, three, compat, qualtype,
             qualtype=qualtype,
         )
         out_stream.commit(total)
-        return total
-    b = assemble_records(
+        return None
+    return assemble_records(
         data, **fields, five=five, three=three, compat=compat,
         n_record_mask=n_record_mask, qualtype=qualtype, out=outbuf,
     )
-    out_stream.write(b)
-    return len(b)
+
+
+def _write(out_stream, b) -> None:
+    if b is not None:
+        out_stream.write(b)
 
 
 def _adapt_cuts_fn(fn: CutsFn) -> Callable:
@@ -287,8 +295,8 @@ class EngineConfig:
     # input file.  None = to EOF.
     byte_limit: Optional[int] = None
     byte_limit2: Optional[int] = None
-    # per-chunk stage timing collector (SURVEY.md §5.1); CLI --metrics.
-    # None = zero-overhead no-op.
+    # the call's span and counter recorder (utils/metrics.py); CLI
+    # --metrics.  None = a no-op.
     metrics: Optional[Metrics] = None
 
 
@@ -467,14 +475,23 @@ def _produce_bgzf(src, pipe, state, mtr, params, need_rows, eff_fn,
     advancing past partial-record bytes) when a record straddles a
     window, and — for interleaved pairs — handing an odd trailing record
     back to the stream so pairs stay whole.  ``prep_put`` consumes each
-    finished chunk (position bookkeeping + wire prep + queue put)."""
+    finished chunk (position bookkeeping + wire prep + queue put).
+    Each window refill is a ``read`` span (its inflate nested)."""
+
+    def extend(min_total: int) -> bool:
+        with _metrics.span("read", mtr):
+            have = src.end - src.pos  # a rotation keeps the live bytes
+            more = src.refill(min_total=min_total)
+            _metrics.count("read_bytes", src.end - src.pos - have, mtr)
+        return more
+
     try:
         while True:
             eff, bm = eff_fn()
             want = eff * max(state["est"], 300)
             while (src.end - src.pos < want
                    and not pipe.stop.is_set()
-                   and src.refill(min_total=want)):
+                   and extend(want)):
                 pass
             if src.end <= src.pos:
                 break
@@ -497,7 +514,7 @@ def _produce_bgzf(src, pipe, state, mtr, params, need_rows, eff_fn,
                 # pos (the n==0 'consumed' covers the partial bytes, which
                 # the next pack still needs)
                 pipe.ws_pool.put(ws)
-                if not src.refill(min_total=2 * want):
+                if not extend(2 * want):
                     src.pos += consumed  # true EOF: partial dropped
                     break
                 continue
@@ -517,7 +534,7 @@ def _produce_bgzf(src, pipe, state, mtr, params, need_rows, eff_fn,
             if n == 0:
                 # the odd-carry emptied a single-record window: extend
                 pipe.ws_pool.put(ws)
-                if not src.refill(min_total=2 * want):
+                if not extend(2 * want):
                     break
                 continue
             if mtr is not None:
@@ -529,6 +546,19 @@ def _produce_bgzf(src, pipe, state, mtr, params, need_rows, eff_fn,
             prep_put(packed)
     finally:
         src.close()
+
+
+def _timed_reads(chunks, mtr: Optional[Metrics], nbytes=len) -> Iterator:
+    """``chunks``, each ``next()`` a ``read`` span of ``mtr`` (or of the
+    call's recorder), its ``nbytes`` counted as ``read_bytes``."""
+    it = iter(chunks)
+    while True:
+        with _metrics.span("read", mtr):
+            chunk = next(it, None)
+        if chunk is None:
+            return
+        _metrics.count("read_bytes", nbytes(chunk), mtr)
+        yield chunk
 
 
 def _skip_offset(arr: np.ndarray, offset: int, n_lines: int) -> Optional[int]:
@@ -615,7 +645,9 @@ def _cuda_cuts_fn(params: TrimParams, device, slice_rows: int = 1 << 16) -> Cuts
     for d in set(devices):
         if d.type == "cuda":
             build()
+            t0 = time.perf_counter_ns()
             torch.empty(1, device=d)
+            _metrics.record_process("load.cuda_context", t0)
     needs_seq = params.trunc_n
     SL = -(-slice_rows // n_mesh) * n_mesh
     enc_offset, enc_qmin, enc_qmax = QUALITY_CONSTANTS[params.qualtype]
@@ -853,9 +885,10 @@ def _recheck_quality_row(packed: PackedReads, row: int, params: TrimParams):
 
 
 def _check_quality(packed: PackedReads, first_bad: np.ndarray, params: TrimParams):
-    n = packed.n_records
-    for row in np.flatnonzero(first_bad[:n] < packed.lengths[:n]):
-        _recheck_quality_row(packed, int(row), params)
+    with _metrics.span("recheck"):
+        n = packed.n_records
+        for row in np.flatnonzero(first_bad[:n] < packed.lengths[:n]):
+            _recheck_quality_row(packed, int(row), params)
 
 
 # Process-level reuse pools.  A PackWorkspace's buffers are tens of MB
@@ -904,10 +937,13 @@ class _Pipeline:
     ``dispatcher(item)`` runs on the main thread (device dispatch);
     ``consume(result)`` runs on the writer thread, strictly in dispatch
     order.  Any stage's exception is re-raised on the main thread; failed
-    stages drain their queues so no peer can block forever.
+    stages drain their queues so no peer can block forever.  Each
+    blocking queue wait is a ``wait.*`` span of ``mtr``.
     """
 
-    def __init__(self, prefetch: int, n_workspaces: int = 0, need_seq: bool = True):
+    def __init__(self, prefetch: int, n_workspaces: int = 0,
+                 need_seq: bool = True, mtr: Optional[Metrics] = None):
+        self.mtr = mtr
         self.pack_q: queue.Queue = queue.Queue(maxsize=prefetch)
         self.write_q: queue.Queue = queue.Queue(maxsize=prefetch)
         self.errors: list = []
@@ -923,13 +959,19 @@ class _Pipeline:
     def get_workspace(self) -> PackWorkspace:
         # stop-aware: when the writer fails, drained chunks are never
         # recycled, so a plain blocking get would deadlock the producer
-        while True:
-            if self.stop.is_set():
-                raise _Cancelled()
-            try:
-                return self.ws_pool.get(timeout=0.05)
-            except queue.Empty:
-                continue
+        with _metrics.span("wait.workspace", self.mtr):
+            while True:
+                if self.stop.is_set():
+                    raise _Cancelled()
+                try:
+                    return self.ws_pool.get(timeout=0.05)
+                except queue.Empty:
+                    continue
+
+    def put(self, item):
+        """Hand a packed chunk to the main thread (producer thread)."""
+        with _metrics.span("wait.pack_q_put", self.mtr):
+            self.pack_q.put(item)
 
     def recycle(self, *packed_list):
         for p in packed_list:
@@ -955,11 +997,12 @@ class _Pipeline:
             self.errors.append(e)
             self.stop.set()
         finally:
-            self.pack_q.put(_SENTINEL)
+            self.put(_SENTINEL)
 
     def _writer_loop(self, consume):
         while True:
-            item = self.write_q.get()
+            with _metrics.span("wait.write_q", self.mtr):
+                item = self.write_q.get()
             if item is _SENTINEL:
                 return
             if self.errors:
@@ -988,23 +1031,32 @@ class _Pipeline:
         if finalize is None:
             finalize = lambda item: item  # noqa: E731
             window = 0
+        mtr = self.mtr
+
+        def hand_on(item):
+            done = finalize(item)
+            with _metrics.span("wait.write_q_put", mtr):
+                self.write_q.put(done)
+
         try:
             while True:
-                item = self.pack_q.get()
+                with _metrics.span("wait.pack_q", mtr):
+                    item = self.pack_q.get()
                 if item is _SENTINEL:
                     break
                 if self.stop.is_set():
                     continue  # drain
                 pending.append(dispatcher(item))
                 while len(pending) > window:
-                    self.write_q.put(finalize(pending.popleft()))
+                    hand_on(pending.popleft())
             if on_drain is not None and not self.stop.is_set():
                 on_drain()
             while pending and not self.stop.is_set():
-                self.write_q.put(finalize(pending.popleft()))
+                hand_on(pending.popleft())
         finally:
-            self.write_q.put(_SENTINEL)
-            tw.join()
+            with _metrics.span("wait.writer_join", mtr):
+                self.write_q.put(_SENTINEL)
+                tw.join()
             # a dispatch or fetch error leaves the producer blocked on a
             # full pack_q: stop it and drain until it has left
             self.stop.set()
@@ -1059,7 +1111,7 @@ def run_se(
     # covering both routes' queues
     window = _finalize_window(cuts_fn)
     pipe = _Pipeline(cfg.prefetch, n_workspaces=cfg.prefetch + 2 + window,
-                     need_seq=params.trunc_n)
+                     need_seq=params.trunc_n, mtr=cfg.metrics)
     counters = counters if counters is not None else SECounters()
     state = {"consumed": cfg.skip_records, "l_max": 0, "est": 0}
     outbuf = _outbuf_checkout()
@@ -1099,7 +1151,7 @@ def run_se(
                 state["est"] = max(state["est"], -(-consumed // packed.n_records))
                 if prep is not None:
                     prep(packed)  # wire prep off the dispatch thread
-                pipe.pack_q.put(packed)
+                pipe.put(packed)
             return
         src = (_bgzf_source(in_stream, cfg.byte_limit, pipe.stop)
                if cfg.skip_records == 0 else None)
@@ -1110,18 +1162,18 @@ def run_se(
                 state["consumed"] += packed.n_records
                 if prep is not None:
                     prep(packed)
-                pipe.pack_q.put(packed)
+                pipe.put(packed)
 
             _produce_bgzf(src, pipe, state, mtr, params, need_rows,
                           lambda: _effective_chunk(cfg, state["l_max"]),
                           prep_put, batch_bytes=cfg.bytes_per_batch)
             return
-        for chunk in iter_record_chunks(
+        for chunk in _timed_reads(iter_record_chunks(
             _bounded(in_stream, cfg.byte_limit),
             lambda: _effective_chunk(cfg, state["l_max"])[0],
             skip_records=cfg.skip_records,
             max_chunk_bytes=3 * cfg.bytes_per_batch,
-        ):
+        ), mtr):
             with _stage(mtr, "pack"):
                 packed = pack_fastq(
                     chunk,
@@ -1139,7 +1191,7 @@ def run_se(
             state["l_max"] = max(state["l_max"], packed.max_len)
             if prep is not None:
                 prep(packed)  # wire prep off the dispatch thread
-            pipe.pack_q.put(packed)
+            pipe.put(packed)
 
     def dispatcher(packed: PackedReads):
         # device work starts here (main thread, or the hybrid fn's
@@ -1168,25 +1220,24 @@ def run_se(
         with _stage(mtr, "consume"):
             _check_quality(packed, first_bad, params)
             n = packed.n_records
-            kept, nbytes = _plan_assemble_fast(out_stream, packed, five,
-                                               three, cfg.compat)
+            kept = _plan_assemble_fast(out_stream, packed, five, three,
+                                       cfg.compat)
             if kept is None:
                 keep = three >= 0
                 kept = int(keep.sum())
-                nbytes = 0
                 if kept:
-                    idx = np.flatnonzero(keep)
-                    nbytes = _emit_records(
-                        out_stream, packed.data, _sel(packed, idx),
-                        five[idx].astype(np.int64),
-                        three[idx].astype(np.int64),
-                        cfg.compat, params.qualtype, outbuf,
-                    )
+                    with _metrics.span("assemble"):
+                        idx = np.flatnonzero(keep)
+                        b = _assembled(
+                            out_stream, packed.data, _sel(packed, idx),
+                            five[idx].astype(np.int64),
+                            three[idx].astype(np.int64),
+                            cfg.compat, params.qualtype, outbuf,
+                        )
+                    _write(out_stream, b)
             counters.kept += kept
             counters.discarded += n - kept
             counters.total += n
-            if mtr is not None:
-                mtr.add_out_bytes(nbytes)
             pipe.recycle(packed)
         if cfg.progress_cb is not None:
             cfg.progress_cb(counters)
@@ -1277,7 +1328,7 @@ def run_pe(
     pipe = _Pipeline(cfg.prefetch,
                      n_workspaces=(cfg.prefetch + 2 + window)
                      * (1 if interleaved else 2),
-                     need_seq=params.trunc_n)
+                     need_seq=params.trunc_n, mtr=cfg.metrics)
     counters = counters if counters is not None else PECounters()
     if cfg.skip_records % 2:
         raise ValueError("pe skip_records must be even (whole pairs)")
@@ -1320,7 +1371,7 @@ def run_pe(
         state["consumed"] += packed.n_records
         if prep is not None:
             prep(packed)  # wire prep off the dispatch thread
-        pipe.pack_q.put((packed, None))
+        pipe.put((packed, None))
 
     def producer():
         if interleaved:
@@ -1361,11 +1412,11 @@ def run_pe(
                 _produce_bgzf(src, pipe, state, mtr, params, need_rows,
                               eff_chunk, put_interleaved, pair_align=True)
                 return
-            for chunk in iter_record_chunks(_bounded(in1, cfg.byte_limit),
-                                            lambda: eff_chunk()[0],
-                                            skip_records=cfg.skip_records,
-                                            max_chunk_bytes=3 * cfg.bytes_per_batch,
-                                            align_records=2):
+            for chunk in _timed_reads(iter_record_chunks(
+                _bounded(in1, cfg.byte_limit), lambda: eff_chunk()[0],
+                skip_records=cfg.skip_records,
+                max_chunk_bytes=3 * cfg.bytes_per_batch, align_records=2,
+            ), mtr):
                 put_interleaved(pack(chunk))
         else:
             m1 = (_mmap_input(in1, cfg.byte_limit)
@@ -1378,16 +1429,19 @@ def run_pe(
             # pack both mate files' chunks as ONE batch (mate-2 rows after
             # mate-1 rows): one device call per chunk, one shared source
             # buffer for output assembly (incl. mixed-source singles)
-            for c1, c2 in _pair_chunks_two_file(
+            def joined(pairs):
+                for c1, c2 in pairs:
+                    if not c1.endswith(b"\n"):
+                        c1 += b"\n"  # keep c2's first line separate at EOF
+                    yield c1.count(b"\n") // 4, c1 + c2
+
+            for n1, chunk in _timed_reads(joined(_pair_chunks_two_file(
                 _bounded(in1, cfg.byte_limit), _bounded(in2, cfg.byte_limit2),
                 lambda: max(eff_chunk()[0] // 2, 4),
                 skip_each=cfg.skip_records // 2,
                 max_chunk_bytes=3 * cfg.bytes_per_batch,
-            ):
-                if not c1.endswith(b"\n"):
-                    c1 += b"\n"  # keep c2's first line separate at EOF
-                n1 = c1.count(b"\n") // 4
-                packed = pack(c1 + c2)
+            )), mtr, nbytes=lambda item: len(item[1])):
+                packed = pack(chunk)
                 if packed.n_records != 2 * n1:
                     raise FastqValidationError(
                         "Batch2 and Batch1 have different lengths, exiting"
@@ -1395,7 +1449,7 @@ def run_pe(
                 state["consumed"] += packed.n_records
                 if prep is not None:
                     prep(packed)
-                pipe.pack_q.put((packed, n1))
+                pipe.put((packed, n1))
 
     def _produce_two_file_mmap(m1, m2):
         """Zero-copy two-file producer, ONE device batch per chunk: both
@@ -1510,7 +1564,7 @@ def run_pe(
                 else:
                     prep(pk1)
                     prep(pk2)
-            pipe.pack_q.put(((pk1, pk2, comb), None))
+            pipe.put(((pk1, pk2, comb), None))
 
     def dispatcher(item):
         # device work is only started here; fetch deferred to finalize
@@ -1750,37 +1804,41 @@ def _write_interleaved_chunk(
 
     if n_record_mode:
         # every pair appears; failed mates become N records
-        sel1 = _sel(packed, idx1)
-        sel2 = _sel(packed, idx2)
-        k = idx1.size
-        fields = _interleave_fields(sel1, sel2, k)
-        fv = np.empty(2 * k, np.int64)
-        tv = np.empty(2 * k, np.int64)
-        fv[0::2], fv[1::2] = np.maximum(f1, 0), np.maximum(f2, 0)
-        tv[0::2], tv[1::2] = np.maximum(t1, 0), np.maximum(t2, 0)
-        mask = np.empty(2 * k, bool)
-        mask[0::2], mask[1::2] = ~p1, ~p2
-        _emit_records(out1, packed.data, fields, fv, tv, cfg.compat,
-                      params.qualtype, outbuf, n_record_mask=mask)
+        with _metrics.span("assemble"):
+            sel1 = _sel(packed, idx1)
+            sel2 = _sel(packed, idx2)
+            k = idx1.size
+            fields = _interleave_fields(sel1, sel2, k)
+            fv = np.empty(2 * k, np.int64)
+            tv = np.empty(2 * k, np.int64)
+            fv[0::2], fv[1::2] = np.maximum(f1, 0), np.maximum(f2, 0)
+            tv[0::2], tv[1::2] = np.maximum(t1, 0), np.maximum(t2, 0)
+            mask = np.empty(2 * k, bool)
+            mask[0::2], mask[1::2] = ~p1, ~p2
+            b = _assembled(out1, packed.data, fields, fv, tv, cfg.compat,
+                           params.qualtype, outbuf, n_record_mask=mask)
+        _write(out1, b)
         return
 
     both = p1 & p2
     if both.any():
         # fused fast path: both-pass pairs are the even/odd row pairs of
         # the interleaved batch, selected by mask in record order
-        kf, _ = _plan_assemble_fast(out1, packed, five, three, cfg.compat,
-                                    three_mask=np.repeat(both, 2))
+        kf = _plan_assemble_fast(out1, packed, five, three, cfg.compat,
+                                 three_mask=np.repeat(both, 2))
         if kf is None:
-            kb = np.flatnonzero(both)
-            fields = _interleave_fields(
-                _sel(packed, idx1[kb]), _sel(packed, idx2[kb]), kb.size
-            )
-            fv = np.empty(2 * kb.size, np.int64)
-            tv = np.empty(2 * kb.size, np.int64)
-            fv[0::2], fv[1::2] = f1[kb], f2[kb]
-            tv[0::2], tv[1::2] = t1[kb], t2[kb]
-            _emit_records(out1, packed.data, fields, fv, tv, cfg.compat,
-                          params.qualtype, outbuf)
+            with _metrics.span("assemble"):
+                kb = np.flatnonzero(both)
+                fields = _interleave_fields(
+                    _sel(packed, idx1[kb]), _sel(packed, idx2[kb]), kb.size
+                )
+                fv = np.empty(2 * kb.size, np.int64)
+                tv = np.empty(2 * kb.size, np.int64)
+                fv[0::2], fv[1::2] = f1[kb], f2[kb]
+                tv[0::2], tv[1::2] = t1[kb], t2[kb]
+                b = _assembled(out1, packed.data, fields, fv, tv,
+                               cfg.compat, params.qualtype, outbuf)
+            _write(out1, b)
     single = p1 ^ p2
     if single.any() and singles_out is not None:
         ks = np.flatnonzero(single)
@@ -1788,13 +1846,15 @@ def _write_interleaved_chunk(
         rows = np.where(take1, idx1[ks], idx2[ks])
         mask_s = np.zeros(n, bool)
         mask_s[rows] = True
-        kf, _ = _plan_assemble_fast(singles_out, packed, five, three,
-                                    cfg.compat, three_mask=mask_s)
+        kf = _plan_assemble_fast(singles_out, packed, five, three,
+                                 cfg.compat, three_mask=mask_s)
         if kf is None:
-            fv = np.where(take1, f1[ks], f2[ks])
-            tv = np.where(take1, t1[ks], t2[ks])
-            _emit_records(singles_out, packed.data, _sel(packed, rows), fv,
-                          tv, cfg.compat, params.qualtype, outbuf)
+            with _metrics.span("assemble"):
+                fv = np.where(take1, f1[ks], f2[ks])
+                tv = np.where(take1, t1[ks], t2[ks])
+                b = _assembled(singles_out, packed.data, _sel(packed, rows),
+                               fv, tv, cfg.compat, params.qualtype, outbuf)
+            _write(singles_out, b)
 
 
 def _write_two_file_chunk(
@@ -1814,20 +1874,21 @@ def _write_two_file_chunk(
     if both.any():
         # fused fast path: mask-select the both-pass records in place
         # (order preserved); numpy fallback for exotic layouts/sinks
-        k1, _ = _plan_assemble_fast(out1, p1k, f1, t1, cfg.compat,
-                                    three_mask=both)
-        k2, _ = _plan_assemble_fast(out2, p2k, f2, t2, cfg.compat,
-                                    three_mask=both)
+        k1 = _plan_assemble_fast(out1, p1k, f1, t1, cfg.compat,
+                                 three_mask=both)
+        k2 = _plan_assemble_fast(out2, p2k, f2, t2, cfg.compat,
+                                 three_mask=both)
         kb = None
-        if k1 is None:
-            kb = np.flatnonzero(both)
-            _emit_records(out1, p1k.data, _sel(p1k, kb), f1[kb], t1[kb],
-                          cfg.compat, params.qualtype, outbuf)
-        if k2 is None:
-            if kb is None:
-                kb = np.flatnonzero(both)
-            _emit_records(out2, p2k.data, _sel(p2k, kb), f2[kb], t2[kb],
-                          cfg.compat, params.qualtype, outbuf)
+        for out, pk, fx, tx, kept in ((out1, p1k, f1, t1, k1),
+                                      (out2, p2k, f2, t2, k2)):
+            if kept is None:
+                with _metrics.span("assemble"):
+                    if kb is None:
+                        kb = np.flatnonzero(both)
+                    b = _assembled(out, pk.data, _sel(pk, kb), fx[kb],
+                                   tx[kb], cfg.compat, params.qualtype,
+                                   outbuf)
+                _write(out, b)
     single = p1 ^ p2
     if single.any() and singles_out is not None:
         # singles come from either source file, in pair order
@@ -1837,42 +1898,47 @@ def _write_two_file_chunk(
         tv = np.where(take1, t1[ks], t2[ks])
         if p1k.data is p2k.data:
             # both mates in one source buffer: single assembly pass
-            s1 = _sel(p1k, ks)
-            s2 = _sel(p2k, ks)
-            fields = {key: np.where(take1, s1[key], s2[key]) for key in s1}
-            _emit_records(singles_out, p1k.data, fields, fv, tv,
-                          cfg.compat, params.qualtype, outbuf)
+            with _metrics.span("assemble"):
+                s1 = _sel(p1k, ks)
+                s2 = _sel(p2k, ks)
+                fields = {key: np.where(take1, s1[key], s2[key])
+                          for key in s1}
+                b = _assembled(singles_out, p1k.data, fields, fv, tv,
+                               cfg.compat, params.qualtype, outbuf)
+            _write(singles_out, b)
         else:
             # two source buffers (zero-copy mmap producer): compute the
             # interleaved output offsets once, then one placement pass
             # per source — never concatenate the buffers
-            nl = np.where(take1, p1k.name_len[ks], p2k.name_len[ks])
-            cl = np.where(take1, p1k.comment_len[ks], p2k.comment_len[ks])
-            sizes = record_out_sizes(nl, cl, fv, tv, cfg.compat)
-            offsets = np.zeros(ks.size, np.int64)
-            if ks.size > 1:
-                np.cumsum(sizes[:-1], out=offsets[1:])
-            total = int(offsets[-1] + sizes[-1])
-            reserve = getattr(singles_out, "reserve", None)
-            if reserve is not None and native.available():
-                # scatter both sources straight into the output mapping
-                buf, start = reserve(total)
-                offsets += start
-            else:
-                buf = (outbuf or OutputBuffer()).ensure(total)
-            for pk, fx, tx, take in (
-                (p1k, f1, t1, take1),
-                (p2k, f2, t2, ~take1),
-            ):
-                sub = np.flatnonzero(take)
-                if sub.size:
-                    rows = ks[sub]
-                    assemble_records_at(
-                        pk.data, **_sel(pk, rows),
-                        five=fx[rows], three=tx[rows],
-                        offsets=offsets[sub], out_buf=buf,
-                        compat=cfg.compat, qualtype=params.qualtype,
-                    )
+            with _metrics.span("assemble"):
+                nl = np.where(take1, p1k.name_len[ks], p2k.name_len[ks])
+                cl = np.where(take1, p1k.comment_len[ks],
+                              p2k.comment_len[ks])
+                sizes = record_out_sizes(nl, cl, fv, tv, cfg.compat)
+                offsets = np.zeros(ks.size, np.int64)
+                if ks.size > 1:
+                    np.cumsum(sizes[:-1], out=offsets[1:])
+                total = int(offsets[-1] + sizes[-1])
+                reserve = getattr(singles_out, "reserve", None)
+                if reserve is not None and native.available():
+                    # scatter both sources straight into the output mapping
+                    buf, start = reserve(total)
+                    offsets += start
+                else:
+                    buf = (outbuf or OutputBuffer()).ensure(total)
+                for pk, fx, tx, take in (
+                    (p1k, f1, t1, take1),
+                    (p2k, f2, t2, ~take1),
+                ):
+                    sub = np.flatnonzero(take)
+                    if sub.size:
+                        rows = ks[sub]
+                        assemble_records_at(
+                            pk.data, **_sel(pk, rows),
+                            five=fx[rows], three=tx[rows],
+                            offsets=offsets[sub], out_buf=buf,
+                            compat=cfg.compat, qualtype=params.qualtype,
+                        )
             if reserve is not None and native.available():
                 singles_out.commit(total)
             else:

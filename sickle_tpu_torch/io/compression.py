@@ -30,6 +30,7 @@ from typing import BinaryIO, Optional, Union
 
 import numpy as np
 
+from ..utils import metrics as _metrics
 from . import native
 
 GZIP_MAGIC = b"\x1f\x8b"
@@ -107,9 +108,6 @@ class BgzfReader(io.RawIOBase):
         return cls(path, offs[:k], csizes[:k], usizes[:k], arr)
 
     def _refill(self) -> bool:
-        import ctypes
-
-        lib = native.get_lib()
         lo = self._next_block
         hi = min(lo + self.WINDOW_BLOCKS, self._offs.size)
         if lo >= hi:
@@ -119,21 +117,33 @@ class BgzfReader(io.RawIOBase):
         if self._out.size < total:
             self._out = np.empty(total, np.uint8)
         out = self._out
-        uoffs = (self._uoffs[lo:hi] - base).copy()
-        rc = int(lib.sk_bgzf_inflate(
-            native.ptr(self._arr, ctypes.c_uint8),
-            native.ptr(np.ascontiguousarray(self._offs[lo:hi]), ctypes.c_int64),
-            native.ptr(np.ascontiguousarray(self._csizes[lo:hi]), ctypes.c_int64),
-            native.ptr(uoffs, ctypes.c_int64),
-            native.ptr(np.ascontiguousarray(self._usizes[lo:hi]), ctypes.c_int64),
-            hi - lo, native.ptr(out, ctypes.c_uint8), native.N_THREADS,
-        ))
-        if rc:
-            raise OSError(f"corrupt BGZF block {lo + rc - 1}")
+        self._inflate(lo, hi, (self._uoffs[lo:hi] - base).copy(), out, total)
         self._next_block = hi
         self._buf = out.data[:total]  # view over the refilled window
         self._buf_pos = 0
         return True
+
+    def _inflate(self, lo: int, hi: int, uoffs, out, total: int) -> None:
+        """Inflate blocks ``lo:hi`` (``total`` bytes) into ``out`` at
+        ``uoffs``, one block per core: an ``inflate`` span."""
+        import ctypes
+
+        lib = native.get_lib()
+        with _metrics.span("inflate"):
+            rc = int(lib.sk_bgzf_inflate(
+                native.ptr(self._arr, ctypes.c_uint8),
+                native.ptr(np.ascontiguousarray(self._offs[lo:hi]),
+                           ctypes.c_int64),
+                native.ptr(np.ascontiguousarray(self._csizes[lo:hi]),
+                           ctypes.c_int64),
+                native.ptr(uoffs, ctypes.c_int64),
+                native.ptr(np.ascontiguousarray(self._usizes[lo:hi]),
+                           ctypes.c_int64),
+                hi - lo, native.ptr(out, ctypes.c_uint8), native.N_THREADS,
+            ))
+        if rc:
+            raise OSError(f"corrupt BGZF block {lo + rc - 1}")
+        _metrics.count("inflated_bytes", total)
 
     def peek_window_bytes(self, max_blocks: Optional[int] = None) -> int:
         """Uncompressed size of the NEXT inflate window (0 at EOF), plus
@@ -157,15 +167,12 @@ class BgzfReader(io.RawIOBase):
         a previous ``read``/``seek`` window is copied out first (one
         bounded copy at a shard start).  Caller guarantees capacity
         (``peek_window_bytes``)."""
-        import ctypes
-
         if self._buf_pos < len(self._buf):
             take = min(len(self._buf) - self._buf_pos, out.size - offset)
             out[offset : offset + take] = np.frombuffer(
                 self._buf, np.uint8, count=take, offset=self._buf_pos)
             self._buf_pos += take
             return take
-        lib = native.get_lib()
         lo = self._next_block
         hi = min(lo + (max_blocks or self.WINDOW_BLOCKS), self._offs.size)
         if lo >= hi:
@@ -178,17 +185,8 @@ class BgzfReader(io.RawIOBase):
         if hi == lo:
             raise ValueError("inflate_into: buffer too small for one block")
         total = int(self._uoffs[hi - 1] + self._usizes[hi - 1]) - base
-        uoffs = (self._uoffs[lo:hi] - base + offset).copy()
-        rc = int(lib.sk_bgzf_inflate(
-            native.ptr(self._arr, ctypes.c_uint8),
-            native.ptr(np.ascontiguousarray(self._offs[lo:hi]), ctypes.c_int64),
-            native.ptr(np.ascontiguousarray(self._csizes[lo:hi]), ctypes.c_int64),
-            native.ptr(uoffs, ctypes.c_int64),
-            native.ptr(np.ascontiguousarray(self._usizes[lo:hi]), ctypes.c_int64),
-            hi - lo, native.ptr(out, ctypes.c_uint8), native.N_THREADS,
-        ))
-        if rc:
-            raise OSError(f"corrupt BGZF block {lo + rc - 1}")
+        self._inflate(lo, hi, (self._uoffs[lo:hi] - base + offset).copy(),
+                      out, total)
         self._next_block = hi
         return total
 
@@ -311,9 +309,11 @@ class BgzfWriter(io.RawIOBase):
         self._pending_bytes = 0
 
     def write(self, data) -> int:
-        data = bytes(data) if not isinstance(data, (bytes, bytearray)) else data
-        self._pending.append(data)
-        self._pending_bytes += len(data)
+        with _metrics.span("bgzf.buffer"):  # a copy: the caller reuses data
+            if not isinstance(data, (bytes, bytearray)):
+                data = bytes(data)
+            self._pending.append(data)
+            self._pending_bytes += len(data)
         if self._pending_bytes >= self.FLUSH_BYTES:
             self._flush_blocks(final=False)
         return len(data)
@@ -336,25 +336,33 @@ class BgzfWriter(io.RawIOBase):
         return self._f.truncate(size)
 
     def _flush_blocks(self, final: bool) -> None:
+        """Compress the buffered bytes and write them: a ``bgzf.flush``
+        span holding ``compress`` and ``sink.write``."""
         import ctypes
 
-        lib = native.get_lib()
-        buf = b"".join(self._pending)
-        self._pending = []
-        self._pending_bytes = 0
-        n = len(buf)
-        arr = np.frombuffer(buf, np.uint8)
-        stride = 48 * 1024 + 4096
-        out = np.empty((n // (48 * 1024) + 1) * stride + 28, np.uint8)
-        w = int(lib.sk_bgzf_compress(
-            native.ptr(arr, ctypes.c_uint8) if n else
-            native.ptr(out, ctypes.c_uint8),  # any valid pointer for n=0
-            n, self._level, 1 if final else 0,
-            native.ptr(out, ctypes.c_uint8), native.N_THREADS,
-        ))
-        if w < 0:
-            raise OSError("BGZF compression failed")
-        self._f.write(memoryview(out)[:w])
+        with _metrics.span("bgzf.flush"):
+            lib = native.get_lib()
+            buf = b"".join(self._pending)
+            self._pending = []
+            self._pending_bytes = 0
+            n = len(buf)
+            arr = np.frombuffer(buf, np.uint8)
+            stride = 48 * 1024 + 4096
+            out = np.empty((n // (48 * 1024) + 1) * stride + 28, np.uint8)
+            with _metrics.span("compress"):
+                w = int(lib.sk_bgzf_compress(
+                    native.ptr(arr, ctypes.c_uint8) if n else
+                    native.ptr(out, ctypes.c_uint8),  # any pointer for n=0
+                    n, self._level, 1 if final else 0,
+                    native.ptr(out, ctypes.c_uint8), native.N_THREADS,
+                ))
+            if w < 0:
+                raise OSError("BGZF compression failed")
+            _metrics.count("deflate_in_bytes", n)
+            _metrics.count("deflate_out_bytes", w)
+            with _metrics.span("sink.write"):
+                self._f.write(memoryview(out)[:w])
+            _metrics.count("sink_bytes", w)
 
     def writable(self) -> bool:
         return True
@@ -363,7 +371,8 @@ class BgzfWriter(io.RawIOBase):
         if self._f is None:
             return
         self._flush_blocks(final=True)  # writes the BGZF EOF marker
-        self._f.close()
+        with _metrics.span("sink.write"):  # what the file buffer still holds
+            self._f.close()
         self._f = None
         super().close()
 

@@ -22,6 +22,9 @@ import pathlib
 import subprocess
 import tempfile
 import threading
+import time
+
+from ..utils import metrics as _metrics
 
 _HERE = pathlib.Path(__file__).resolve().parent
 _SRC = _HERE.parent / "csrc" / "fastqio.cpp"
@@ -53,12 +56,14 @@ def tune_malloc() -> None:
         pass
 
 
-def _build() -> bool:
+def _build():
+    """True when g++ built the library, False when a built one is
+    current, None when there is none."""
     if not _SRC.exists():
-        return False
+        return None
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     if _SO.exists() and _SO.stat().st_mtime >= _SRC.stat().st_mtime:
-        return True
+        return False
     # compile to a private name, then rename into place: concurrent
     # first-use builds (test workers) never load a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
@@ -72,14 +77,15 @@ def _build() -> bool:
         os.replace(tmp, _SO)
         return True
     except Exception:
-        return False
+        return None
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
 
 
 def get_lib():
-    """The loaded native library, or None if unavailable."""
+    """The loaded native library, or None if unavailable.  The first load
+    is the process's ``load.native`` span (``built``: g++ ran)."""
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
@@ -89,7 +95,9 @@ def get_lib():
         _tried = True
         if os.environ.get("SICKLE_TPU_NO_NATIVE"):
             return None
-        if not _build():
+        t0 = time.perf_counter_ns()
+        built = _build()
+        if built is None:
             return None
         lib = ctypes.CDLL(str(_SO))
         i64, i32, u8 = ctypes.c_int64, ctypes.c_int32, ctypes.c_uint8
@@ -142,6 +150,7 @@ def get_lib():
         lib.sk_bgzf_compress.argtypes = [pu8, i64, ctypes.c_int,
                                          ctypes.c_int, pu8, ctypes.c_int]
         _lib = lib
+        _metrics.record_process("load.native", t0, built=built)
         return _lib
 
 

@@ -29,12 +29,14 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from typing import Optional
 
 import torch
 
 from ..constants import Compat, QUALITY_CONSTANTS
 from ..io.fastq import field_widths
+from ..utils import metrics as _metrics
 from .trim import MAX_PACKED_L, TrimParams, trim_codes, wire_codes
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
@@ -110,11 +112,15 @@ def _nvcc() -> str:
 
 
 def build(force: bool = False) -> ctypes.CDLL:
-    """Compile (if stale) and load the kernel library; raises on failure."""
+    """Compile (if stale) and load the kernel library; raises on failure.
+    The first load is the process's ``load.cuts_kernel`` span (``built``:
+    nvcc ran)."""
     global _lib, BUILD_LOG
     with _lock:
         if _lib is not None and not force:
             return _lib
+        t0 = time.perf_counter_ns()
+        built = False
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         if (force or not _LIB_PATH.exists()
                 or _LIB_PATH.stat().st_mtime < SOURCE.stat().st_mtime):
@@ -128,6 +134,7 @@ def build(force: bool = False) -> ctypes.CDLL:
                         f"nvcc failed ({r.returncode}) on {SOURCE}:\n{r.stderr}")
                 BUILD_LOG = r.stderr
                 os.replace(tmp, _LIB_PATH)
+                built = True
             finally:
                 if os.path.exists(tmp):
                     os.unlink(tmp)
@@ -143,6 +150,7 @@ def build(force: bool = False) -> ctypes.CDLL:
                                           ctypes.c_ulonglong, ci, ci, ci, ci,
                                           ci, vp]
         _lib = lib
+        _metrics.record_process("load.cuts_kernel", t0, built=built)
         return _lib
 
 

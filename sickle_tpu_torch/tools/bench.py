@@ -36,10 +36,10 @@ The gate, per cell: every run's outputs (SHA-256) and summary equal, and
 the first 2,000 records (pairs) equal to the scalar oracle
 (``oracle.py``).  A cell that fails it makes the bench exit 1.
 
-Per mode: the best and median rate, every pass's rate, ``stalled``
-(``Metrics.stalled``: one chunk's device time a 20x outlier over 2 s) on
-any pass, and from the median pass H2D bytes per read, the router's split
-and the stage totals.  Two more rows: the kernel's time per 65,536 x 152
+Per mode: the best and median rate, every pass's rate, and from the
+median pass H2D bytes per read, the router's split (its ``chunks_rescued``
+counts the chunks the host took over from a stalled device) and the stage
+totals.  Two more rows: the kernel's time per 65,536 x 152
 batch per form with GB/s and the share of the bytes bound
 (``kernel_verify.form_times``), and the wall of a fresh ``python -m
 sickle_tpu_torch se`` process on the ``se_uniform`` file and of
@@ -282,7 +282,6 @@ def _mode_row(cell, runs):
     return {
         "best": max(rates), "median": statistics.median(rates),
         "passes": rates, "seconds": [r[0] for r in runs],
-        "stalled": any(r[3]["stalled"] for r in runs),
         "h2d_bytes_per_read": met["h2d_bytes"] / cell.reads,
         "chunks": met["chunks"], "routes": met["routes"],
         "hybrid": met.get("hybrid"),

@@ -33,7 +33,10 @@ def test_bench_tiny_on_cpu(tmp_path, capsys):
         assert list(cell["modes"]) == ["auto", "device", "raw", "host"]
         for mode, row in cell["modes"].items():
             assert len(row["passes"]) == 1 and row["median"] > 0
-            assert row["stalled"] is False
+            # a stalled device shows as chunks the router rescued
+            assert (row["hybrid"] is None) == (mode in ("device", "raw"))
+            if row["hybrid"] is not None:
+                assert row["hybrid"]["chunks_rescued"] == 0
             assert (row["h2d_bytes_per_read"] == 0) == (mode == "host"), name
             assert set(row["stage_total_ms"]) == {
                 "pack", "prep", "dispatch", "fetch", "consume"}

@@ -1,0 +1,14 @@
+"""The main thread's ``wait.write_q_put`` and ``wait.writer_join`` (blocked
+on the writer) as a share of ``engine`` (all of ``run_pe``), %."""
+
+from trimbench import spans
+
+LAYER = "engine pipeline"
+UNIT = "%"
+MOVES = "plate_bases_per_s"
+WORKLOADS = ["amplicon_pe250.plate"]
+
+
+def read(run):
+    return spans.share_pct(run, ["wait.write_q_put", "wait.writer_join"],
+                           "engine")
