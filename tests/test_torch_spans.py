@@ -20,8 +20,8 @@ from sickle_tpu_torch.ops import trim_cuda
 from sickle_tpu_torch.utils import corpus, metrics
 from sickle_tpu_torch.utils.metrics import Metrics
 
-PAIRS = 6000
-# 4,096 records a chunk (-b 1), 2,048 pairs: three chunks
+PAIRS = 10000
+# 4,096 pairs a chunk (-b 1): three chunks
 ARGS = ["pe", "-t", "sanger", "-g", "-b", "1", "-a", "2"]
 FLUSH_BYTES = 256 << 10  # several flushes mid-run, and one at close
 
@@ -114,6 +114,10 @@ def test_every_span_of_every_thread_is_recorded(traced):
     c = summary["counters"]
     assert c["read_bytes"] == c["inflated_bytes"] == summary["in_bytes"]
     assert c["deflate_out_bytes"] == c["sink_bytes"]
+    # the zero-copy two-file producer packed every chunk; a window rotation
+    # copies at most what was live
+    assert c["pair_zero_copy_chunks"] == sum(summary["routes"].values()) >= 3
+    assert 0 <= c["carry_bytes"] < c["read_bytes"]
 
 
 def test_spans_nest_on_their_thread(traced):
@@ -137,6 +141,10 @@ def test_spans_nest_on_their_thread(traced):
             open_ends.append(-neg_t1)
     for name, row in summary["spans"].items():
         assert 0 <= row["self_ms"] <= row["total_ms"], name
+    # every window refill of either mate is a read span holding its inflate
+    inflates = [s for s in mtr.spans if s[1] == "inflate"]
+    assert len(inflates) >= 2
+    assert all(by_id[s[5]][1] == "read" for s in inflates)
     # compress and sink.write lie inside a flush, in-run and at close
     parents = {by_id[s[5]][1] for s in mtr.spans
                if s[1] == "bgzf.flush" and s[5] is not None}
