@@ -4,7 +4,9 @@ A configuration is the JSON file its entry names; a traffic mix is
 ``trimbench/traffic/<name>.json``; a metric, end-to-end or per-layer, is
 ``trimbench/metrics/<name>.py``, a small reader with ``read(run)``.  A
 later cell, configuration, traffic mix or metric is added as files and
-entries alone.
+entries alone: a configuration with one ``read_length`` is single-end
+(``se`` on one mate file), two is paired-end (``pe`` on two), and a traffic
+mix with ``"pool": true`` writes every sample into one set of mate files.
 """
 
 from __future__ import annotations

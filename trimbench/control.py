@@ -6,8 +6,8 @@ limits are 0.  A comparison is only worth its limits if it fails what
 should fail: here, the reference's own rule run on each Phred value rounded
 down to an even one (``reference.cuts(drop_bit=True)``), the shortcut a
 lossy quality wire would take.  This prints, per seed, the numbers the
-comparison reads for one pass over every sample of a cell, at the cell's
-size, against the reference at full precision:
+comparison reads for one pass over every input file of a cell, at the
+cell's size, against the reference at full precision:
 
     python3 -m trimbench.control --workload <cell> --seeds 3 [--first N]
 
@@ -18,7 +18,6 @@ CPU.
 from __future__ import annotations
 
 import argparse
-import collections
 import json
 import sys
 import time
@@ -30,27 +29,20 @@ from . import catalog, compare, corpus, reference
 def readings(cfg: dict, mix: dict, seed: int, device,
              scale: float = 1.0) -> Dict[str, int]:
     """``wrong_records`` and ``wrong_summaries`` of the control over one
-    pass of every sample."""
-    q, min_len = reference.thresholds(mix["flags"])
+    pass of every input file of the cell (``corpus.files``: a file set per
+    sample, or one pooled set), ``se`` or ``pe`` as the configuration has
+    mates."""
     numbers = {"wrong_records": 0, "wrong_summaries": 0}
-    for sample, pairs in enumerate(corpus.sample_pairs(cfg, scale)):
-        outs: Dict[bool, List[List[bytes]]] = {k: [[], [], []]
-                                               for k in (False, True)}
-        counts = {k: collections.Counter() for k in (False, True)}
-        for b in corpus.blocks(pairs):
-            block = corpus.pair_block(cfg, seed, sample, b, pairs, device)
-            for lossy in (False, True):
-                *parts, c = reference.trim_pairs(block, cfg["qual_offset"], q,
-                                                 min_len, drop_bit=lossy)
-                for acc, part in zip(outs[lossy], parts):
-                    acc.append(part.cpu().numpy().tobytes())
-                counts[lossy].update(c)
-        for want, got in zip(outs[False], outs[True]):
-            numbers["wrong_records"] += compare.wrong_records(b"".join(got),
-                                                              b"".join(want))
-        numbers["wrong_summaries"] += (
-            reference.summary("r1", "r2", counts[True])
-            != reference.summary("r1", "r2", counts[False]))
+    names = ["r1", "r2"][:corpus.mates(cfg)]
+    for parts in corpus.files(cfg, mix, scale):
+        want, counts = reference.expected(cfg, mix["flags"], seed, parts,
+                                          device)
+        got, lossy = reference.expected(cfg, mix["flags"], seed, parts,
+                                        device, drop_bit=True)
+        for w, g in zip(want, got):
+            numbers["wrong_records"] += compare.wrong_records(g, w)
+        numbers["wrong_summaries"] += (reference.summary_of(names, lossy)
+                                       != reference.summary_of(names, counts))
     return numbers
 
 

@@ -13,10 +13,12 @@ The copy is extended, and only the copy:
 * every block of a sample is seeded from the run's seed, the sample and the
   block alone, so the reference can make any block again after the window;
 * a sample's pair counts are a fixed set for every seed: the seed orders
-  the samples and draws the reads, never how much work there is.
+  the samples and draws the reads, never how much work there is;
+* a single-end configuration (one entry in ``read_length``) draws mate 1
+  alone, as a pair's mate 1 is drawn.
 
 Every read of a mate has the configuration's length and every name of a
-file the same width, so a block's FASTQ text is one ``[reads, record]``
+sample the same width, so a block's FASTQ text is one ``[reads, record]``
 array made in a few large calls.
 """
 
@@ -139,24 +141,32 @@ def mate_model(cfg: dict, mate: int) -> dict:
     return model
 
 
+def mates(cfg: dict) -> int:
+    """2 for a paired-end configuration, 1 for a single-end one: one
+    entry of ``read_length`` per mate."""
+    return len(cfg["read_length"])
+
+
 def pair_block(cfg: dict, seed: int, sample, block: int, total: int,
                device) -> dict:
     """Pairs ``block * BLOCK_PAIRS ..`` of a sample of ``total`` pairs:
-    ``name1, seq1, qual1, name2, seq2, qual2`` (uint8 rows).  ``sample``
-    is the sample's index, or ``WARMUP``."""
+    ``name1, seq1, qual1, name2, seq2, qual2`` (uint8 rows), or, for a
+    single-end configuration, mate 1's alone, drawn as a pair's mate 1 is.
+    ``sample`` is the sample's index, or ``WARMUP``."""
     first = block * BLOCK_PAIRS
     n = min(BLOCK_PAIRS, total - first)
     offset = cfg["qual_offset"]
     out = {}
-    for mate in (1, 2):
+    for mate in range(1, mates(cfg) + 1):
         gen = _generator(device, seed, sample, block, mate)
         out[f"seq{mate}"], out[f"qual{mate}"] = mate_reads(
             gen, n, cfg["read_length"][mate - 1], mate_model(cfg, mate),
             offset, device)
     gen = _generator(device, seed, sample, block, "names")
     number = sample if isinstance(sample, int) else 0
-    out["name1"], out["name2"] = read_names(gen, first, n, total,
-                                            cfg["names"], number, device)
+    names = read_names(gen, first, n, total, cfg["names"], number, device)
+    for mate in range(1, mates(cfg) + 1):
+        out[f"name{mate}"] = names[mate - 1]
     return out
 
 
@@ -188,6 +198,15 @@ def sample_pairs(cfg: dict, scale: float = 1.0) -> List[int]:
     else:
         pairs = [cfg["pairs"]] * k
     return [max(1, round(p * scale)) for p in pairs]
+
+
+def files(cfg: dict, mix: dict, scale: float = 1.0) -> List[List[tuple]]:
+    """The input files of a cell, each the ``(sample, pairs)`` written into
+    it one after another: one file per sample, or with the traffic's
+    ``pool`` every sample in index order in one file, byte for byte the
+    concatenation of the per-sample files."""
+    sizes = list(enumerate(sample_pairs(cfg, scale)))
+    return [sizes] if mix.get("pool") else [[s] for s in sizes]
 
 
 def plate_order(samples: int, seed: int) -> List[int]:

@@ -6,7 +6,10 @@ The harness marks the window and each call with ``record_function``
 every ``kernel``, ``gpu_memcpy`` and ``gpu_memset`` event.  Busy time is
 the length of the union of those events within the window; an idle gap is
 a stretch of the window between them, named by what the host was doing at
-its middle.
+its middle: the innermost of the program's own spans (its ``--metrics``
+spans, which it enters as ``record_function`` while a profiler records)
+open on the call's thread then, such as ``wait.pack_q``, or, where none
+is, the call itself.
 """
 
 from __future__ import annotations
@@ -20,11 +23,24 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TOP = 10
 
 
-def _label(mid: float, calls: List[tuple]) -> str:
-    for start, end, name in calls:
+def _label(mid: float, calls: List[tuple], program: List[tuple]) -> str:
+    """What the host was doing at ``mid``: the innermost program span on
+    the thread of the call then in flight, or the call."""
+    for start, end, name, thread in calls:
         if start <= mid <= end:
+            inner = [s for s in program
+                     if s[3] == thread and s[0] <= mid <= s[1]]
+            if inner:
+                return max(inner, key=lambda s: (s[0], -s[1]))[2]
             return f"host in cli.main ({name[len(CALL):]})"
     return "host between cli.main calls"
+
+
+def _span(e: dict) -> tuple:
+    """``(start, end, name, thread)`` of a complete event, in us."""
+    start = float(e["ts"])
+    return start, start + float(e["dur"]), e["name"], (e.get("pid"),
+                                                       e.get("tid"))
 
 
 def reduce(path: str) -> Dict:
@@ -37,9 +53,10 @@ def reduce(path: str) -> Dict:
                   and e.get("cat") == "user_annotation")
     w0 = float(window["ts"])
     w1 = w0 + float(window["dur"])
-    calls = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
-                   for e in spans if e.get("cat") == "user_annotation"
-                   and str(e.get("name", "")).startswith(CALL))
+    host = [_span(e) for e in spans if e.get("cat") == "user_annotation"]
+    calls = sorted(s for s in host if s[2].startswith(CALL))
+    program = [s for s in host
+               if s[2] != WINDOW and not s[2].startswith(CALL)]
     device = sorted((max(float(e["ts"]), w0),
                      min(float(e["ts"]) + float(e["dur"]), w1), e["name"])
                     for e in spans if e.get("cat") in DEVICE_CATS)
@@ -48,20 +65,21 @@ def reduce(path: str) -> Dict:
     for start, end, name in device:
         ops[name] = ops.get(name, 0.0) + (end - start) / 1e6
     busy = 0.0
-    gaps = []
+    gaps = []  # (length, middle)
     edge = w0
     for start, end, _ in device:
         if start > edge:
-            gaps.append((start - edge, _label((start + edge) / 2, calls)))
+            gaps.append((start - edge, (start + edge) / 2))
         if end > edge:
             busy += end - max(start, edge)
             edge = end
     if w1 > edge:
-        gaps.append((w1 - edge, _label((w1 + edge) / 2, calls)))
+        gaps.append((w1 - edge, (w1 + edge) / 2))
     gaps.sort(reverse=True)
     return {
         "busy_s": busy / 1e6,
         "window_s": (w1 - w0) / 1e6,
         "ops": sorted(ops.items(), key=lambda kv: -kv[1]),
-        "gaps": [(name, gap / 1e6) for gap, name in gaps[:TOP]],
+        "gaps": [(_label(mid, calls, program), gap / 1e6)
+                 for gap, mid in gaps[:TOP]],
     }

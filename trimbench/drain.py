@@ -1,7 +1,8 @@
 """The output sink: a process of its own that drains the program's pipes.
 
-The program writes each call's three outputs (``-o``, ``-p``, ``-s``) into
-three named pipes that the harness made, so a run writes no output to disk.
+The program writes each call's outputs (``pe``'s ``-o``, ``-p``, ``-s``, or
+``se``'s ``-o``) into named pipes that the harness made, so a run writes no
+output to disk.
 This process reads them, one thread per output so the program never waits
 on the order in which it opens them, and keeps what the comparison needs
 and little else: the bytes of each distinct stream (as it came,
@@ -19,11 +20,12 @@ it sends the compressed bytes back.
 
 Protocol, JSON lines on stdin and stdout:
 
-* in: ``{"call": id, "paths": [out1, out2, singles]}`` before each call,
-  ``{"end": true}`` after the window, then ``{"want": [digest, ...]}``;
-* out: one line ``{"calls": {id: [stream, stream, stream]},
-  "window_cpu_s": s, "cpu_s": s}`` (CPU seconds until the last pipe ended,
-  and in all), each stream ``[sha256, size, records]`` or
+* in: ``{"call": id, "paths": [out1, out2, singles]}`` before each call
+  (one to three paths: ``se`` gives ``[out1]``), ``{"end": true}`` after
+  the window, then ``{"want": [digest, ...]}``;
+* out: one line ``{"calls": {id: [stream, ...]}, "window_cpu_s": s,
+  "cpu_s": s}`` (a stream per path of the call; CPU seconds until the last
+  pipe ended, and in all), each stream ``[sha256, size, records]`` or
   ``[null, 0, 0, error]``; then
   per wanted digest a line ``{"digest": d, "size": n}`` and ``n`` bytes.
 
@@ -93,7 +95,7 @@ def inflate_digest(data: bytes) -> list:
 
 
 class Output:
-    """One of the three outputs: its pipes, one per call, in call order."""
+    """One of the outputs: its pipes, one per call, in call order."""
 
     def __init__(self):
         self.jobs: queue.Queue = queue.Queue()
@@ -149,11 +151,13 @@ def main() -> int:
     if len(sys.argv) > 1:  # before a thread starts, so each keeps to them
         os.sched_setaffinity(0, {int(c) for c in sys.argv[1].split(",")})
     outputs = [Output() for _ in range(3)]
+    width = {}  # call id -> its number of paths
     lines = iter(sys.stdin.buffer.readline, b"")
     for line in lines:
         msg = json.loads(line)
         if msg.get("end"):
             break
+        width[msg["call"]] = len(msg["paths"])
         for out, path in zip(outputs, msg["paths"]):
             out.jobs.put((msg["call"], path))
     for out in outputs:
@@ -170,9 +174,10 @@ def main() -> int:
     first = 0
     for i, out in enumerate(outputs):
         for call, k in out.calls.items():
-            calls.setdefault(call, [None] * 3)[i] = inflated[first + k]
+            calls.setdefault(call, [None] * width[call])[i] = inflated[first + k]
         for call, error in out.errors.items():
-            calls.setdefault(call, [None] * 3)[i] = [None, 0, 0, error]
+            calls.setdefault(call, [None] * width[call])[i] = [None, 0, 0,
+                                                              error]
         first += len(out.streams)
     times = os.times()
     reply = {"calls": calls, "window_cpu_s": window_cpu_s,

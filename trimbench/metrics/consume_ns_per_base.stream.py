@@ -6,7 +6,7 @@ from trimbench import readers
 LAYER = "engine writer"
 UNIT = "ns/base"
 MOVES = "bases_per_s"
-WORKLOADS = ["wgs_pe150.bgzf_pair"]
+WORKLOADS = ["wgs_pe150.bgzf_pair", "amplicon_pe250.pooled"]
 
 
 def read(run):

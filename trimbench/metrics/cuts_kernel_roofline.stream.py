@@ -7,7 +7,7 @@ from trimbench import readers
 LAYER = "cuts kernel"
 UNIT = "%"
 MOVES = "bases_per_s"
-WORKLOADS = ["wgs_pe150.bgzf_pair"]
+WORKLOADS = ["wgs_pe150.bgzf_pair", "amplicon_pe250.pooled"]
 
 
 def read(run):

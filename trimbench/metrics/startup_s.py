@@ -5,7 +5,8 @@ generation is not in it."""
 LAYER = "start-up"
 UNIT = "s"
 MOVES = "setup_s"
-WORKLOADS = ["wgs_pe150.bgzf_pair", "amplicon_pe250.plate"]
+WORKLOADS = ["wgs_pe150.bgzf_pair", "amplicon_pe250.plate",
+             "amplicon_pe250.pooled"]
 
 
 def read(run):

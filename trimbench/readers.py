@@ -18,7 +18,9 @@ from . import roofline
 
 @dataclasses.dataclass
 class Call:
-    """One ``cli.main`` call of the window: one sample's file pair."""
+    """One ``cli.main`` call of the window: one set of mate files (a
+    sample's, or a pooled plate's).  ``pairs`` counts the records of one
+    mate file, ``bases`` those of all of them."""
 
     sample: int
     pairs: int
@@ -26,10 +28,11 @@ class Call:
     wall_s: float
     rc: Optional[int]          # None: the call raised
     metrics: Optional[dict]    # the ``--metrics`` summary (traced runs)
+    mates: int = 2             # mate files: 2 for ``pe``, 1 for ``se``
 
     @property
     def reads(self) -> int:
-        return 2 * self.pairs
+        return self.mates * self.pairs
 
 
 @dataclasses.dataclass

@@ -1,11 +1,12 @@
-"""The plain reference: sickle 1.33's windowed trim and ``pe`` pairing.
+"""The plain reference: sickle 1.33's windowed trim, ``se`` and ``pe``.
 
 Plain PyTorch, on any device, written from sickle 1.33's rules
-(``src/sliding_window.c`` and ``src/trim_paired.c``) and nothing of the
-program under test.  It works from the arrays the corpus
+(``src/sliding_window.c``, ``src/trim_single.c`` and ``src/trim_paired.c``)
+and nothing of the program under test.  It works from the arrays the corpus
 made, the same the harness wrote into the program's input files, and
-writes the three outputs and the summary that ``sickle pe -f -r -o -p -s``
-prints under the default ``--compat`` (1.33: the ``+`` line bare).
+writes the outputs and the summary that ``sickle se -f -o`` and
+``sickle pe -f -r -o -p -s`` print under the default ``--compat`` (1.33:
+the ``+`` line bare).
 
 The rule, per read of length ``L`` and threshold ``q``: the window is
 ``int(0.1 * L)`` positions, or the whole read when that is 0.  Scanning
@@ -14,8 +15,9 @@ size starts the read at its first position of quality ``q`` or more; the
 first later window whose sum falls below cuts the read at its first
 position of quality under ``q``.  A read shorter than ``-l``, with no
 window reaching ``q``, or shorter than ``-l`` once trimmed, is discarded.
-A pair whose mates both stay goes to ``-o`` and ``-p``; one whose single
-mate stays puts it in ``-s``, in pair order.
+``se`` writes every read that stays to ``-o``, in input order.  A pair
+whose mates both stay goes to ``-o`` and ``-p``; one whose single mate
+stays puts it in ``-s``, in pair order.
 
 ``drop_bit`` is the control: the same rule on qualities carried with one
 bit fewer (each Phred value rounded down to an even one), the shortcut a
@@ -24,7 +26,12 @@ lossy quality wire would take.
 
 from __future__ import annotations
 
+import collections
+from typing import List
+
 import torch
+
+from . import corpus
 
 NEWLINE = 10
 PLUS = 43
@@ -98,6 +105,19 @@ def _pad_to(t: torch.Tensor, width: int) -> torch.Tensor:
     return torch.nn.functional.pad(t, (0, width - t.shape[1]))
 
 
+def trim_single(block: dict, offset: int, q: int, min_len: int,
+                drop_bit: bool = False) -> tuple:
+    """``(out, counters)`` of one block of single reads: a flat uint8
+    tensor and the summary's counts."""
+    five, three = cuts(block["qual1"], offset, q, min_len, drop_bit)
+    keep = three >= 0
+    out = records(block["name1"][keep], block["seq1"][keep],
+                  block["qual1"][keep], five[keep], three[keep])
+    kept = int(keep.sum())
+    return out, dict(total=int(keep.numel()), kept=kept,
+                     discarded=int(keep.numel()) - kept)
+
+
 def trim_pairs(block: dict, offset: int, q: int, min_len: int,
                drop_bit: bool = False) -> tuple:
     """``(out1, out2, singles, counters)`` of one block of pairs: three
@@ -145,3 +165,43 @@ def summary(r1: str, r2: str, c: dict) -> str:
         f"FastQ single records discarded: {c['discard_s1'] + c['discard_s2']} "
         f"(from PE1: {c['discard_s1']}, from PE2: {c['discard_s2']})\n\n"
     )
+
+
+def summary_se(r1: str, c: dict) -> str:
+    """What ``sickle se`` prints for one input file."""
+    return (f"\nSE input file: {r1}\n\n"
+            f"Total FastQ records: {c['total']}\n"
+            f"FastQ records kept: {c['kept']}\n"
+            f"FastQ records discarded: {c['discarded']}\n\n")
+
+
+def summary_of(paths: List[str], c: dict) -> str:
+    """The summary of a call on ``paths``: ``se``'s for one input file,
+    ``pe``'s for two mate files."""
+    return summary_se(paths[0], c) if len(paths) == 1 else summary(*paths, c)
+
+
+def expected(cfg: dict, flags, seed: int, parts, device,
+             drop_bit: bool = False) -> tuple:
+    """``(outputs, counts)`` of one input file made of ``parts``, each
+    ``(sample, pairs)`` as ``corpus.files`` gives them: the outputs
+    (``se``'s one, ``pe``'s three) as bytes, each the concatenation of the
+    parts' in order, and the counts summed."""
+    q, min_len = thresholds(flags)
+    single = corpus.mates(cfg) == 1
+    parts_out: List[List[bytes]] = [[] for _ in range(1 if single else 3)]
+    counts = collections.Counter()
+    for sample, pairs in parts:
+        for b in corpus.blocks(pairs):
+            block = corpus.pair_block(cfg, seed, sample, b, pairs, device)
+            if single:
+                out, c = trim_single(block, cfg["qual_offset"], q, min_len,
+                                     drop_bit)
+                outs = [out]
+            else:
+                *outs, c = trim_pairs(block, cfg["qual_offset"], q, min_len,
+                                      drop_bit)
+            for acc, o in zip(parts_out, outs):
+                acc.append(o.cpu().numpy().tobytes())
+            counts.update(c)
+    return [b"".join(p) for p in parts_out], dict(counts)

@@ -9,21 +9,25 @@ the port (``sickle_tpu_torch``).  A run:
    context (``startup_s``, from the process's start);
 2. makes the configuration's samples on the card from the seed and writes
    them as the cell's traffic says (plain, or BGZF as ``bgzip`` writes
-   them) under ``TMPDIR``, synced to disk;
-3. warms up: trims a warm-up file pair of ``WARMUP_PAIRS`` pairs, made
+   them) under ``TMPDIR``, synced to disk: a mate file per mate (two for
+   a paired-end configuration, one for a single-end one), one set per
+   sample, or with the traffic's ``pool`` every sample in one set;
+3. warms up: trims a warm-up file set of ``WARMUP_PAIRS`` pairs, made
    and written as the samples are, once: a full chunk and a partial one,
    at the cell's read lengths and through its reader, writer and pipes
    (``setup_s`` ends here);
-4. for ``--seconds``, trims one sample's file pair after another in the
-   seeded plate order, each a call of ``sickle_tpu_torch.cli.main`` in
-   this process on ``cuda``, its three ``-g`` outputs written into named
-   pipes that a drain process reads (``trimbench/drain.py``); the window
-   ends when the call in flight at ``--seconds`` returns.  ``--trace 1``
-   adds ``--metrics`` to each call and profiles the window;
+4. for ``--seconds``, trims one file set after another in the seeded
+   plate order, each a call of ``sickle_tpu_torch.cli.main`` in this
+   process on ``cuda`` (``pe`` on two mate files, ``se`` on one), its
+   ``-g`` outputs (``pe``'s three, ``se``'s one) written into named pipes
+   that a drain process reads (``trimbench/drain.py``); the window ends
+   when the call in flight at ``--seconds`` returns.  ``--trace 1`` adds
+   ``--metrics`` to each call and profiles the window;
 5. reads the card's memory peak, checks that no JAX module was loaded,
-   works out every sample of the window again with the plain reference
-   (``trimbench/reference.py``) and holds each call's outputs and summary
-   to it (``trimbench/compare.py``);
+   works out every file set of the window again with the plain reference
+   (``trimbench/reference.py``), a pooled one as its samples one after
+   another, and holds each call's outputs and summary to it
+   (``trimbench/compare.py``);
 6. prints the compared numbers with their limits as the last lines of
    standard error, and one JSON line: ``correct``, ``attempted``,
    ``failed``, ``metrics``, ``device``, with ``--trace 1`` ``breakdown``,
@@ -62,7 +66,7 @@ import time
 import traceback
 import zlib
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 from . import (bgzf, catalog, compare, corpus, devtrace, readers, reference,
                roofline)
@@ -122,8 +126,10 @@ class Sink:
         self.proc.stdin.write((json.dumps(msg) + "\n").encode())
         self.proc.stdin.flush()
 
-    def call(self, call_id: str) -> List[str]:
-        paths = [str(self.dir / f"{call_id}.{out}") for out in ("o", "p", "s")]
+    def call(self, call_id: str, outputs: int) -> List[str]:
+        """The pipes of a call's first ``outputs`` of ``-o``, ``-p``, ``-s``."""
+        paths = [str(self.dir / f"{call_id}.{out}")
+                 for out in ("o", "p", "s")[:outputs]]
         for path in paths:
             os.mkfifo(path, 0o600)
         self.paths += paths
@@ -182,38 +188,57 @@ class Sink:
                 self.proc.wait()
 
 
+class InputFiles(NamedTuple):
+    """The mate files of one call: ``paths`` one per mate, holding the
+    ``(sample, pairs)`` of ``parts`` one after another."""
+
+    label: str
+    paths: List[str]
+    parts: List[tuple]
+
+    @property
+    def pairs(self) -> int:
+        return sum(n for _, n in self.parts)
+
+
 def write_inputs(cfg: dict, mix: dict, seed: int, work: pathlib.Path,
                  device, scale: float):
-    """Writes each sample's two mate files, and the warm-up's, synced;
-    returns ``(samples, warmup, bytes_written, distinct_quality_symbols,
-    sync_s)``, each sample and the warm-up ``(r1, r2, pairs)``, and
-    ``sync_s`` the seconds the syncs took."""
+    """Writes the mate files of each of the cell's calls
+    (``corpus.files``), and the warm-up's, synced; returns ``(files,
+    warmup, bytes_written, distinct_quality_symbols, sync_s)``, each file
+    set and the warm-up an ``InputFiles``, and ``sync_s`` the seconds the
+    syncs took."""
     import torch
 
     gz = mix["input"] == "bgzf"
     suffix = ".fastq.gz" if gz else ".fastq"
+    mates = range(1, corpus.mates(cfg) + 1)
     symbols = set()
     files = []
     written = 0
     sync_s = 0.0
-    sizes = list(enumerate(corpus.sample_pairs(cfg, scale)))
-    sizes.append((corpus.WARMUP, max(1, round(WARMUP_PAIRS * scale))))
+    layout = corpus.files(cfg, mix, scale)
+    layout.append([(corpus.WARMUP, max(1, round(WARMUP_PAIRS * scale)))])
     with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
-        for sample, total in sizes:
-            paths = [str(work / f"{sample}_R{mate}{suffix}") for mate in (1, 2)]
-            with open(paths[0], "wb") as f1, open(paths[1], "wb") as f2:
+        for parts in layout:
+            stem = parts[0][0] if len(parts) == 1 else "pool"
+            paths = [str(work / f"{stem}_R{mate}{suffix}") for mate in mates]
+            with contextlib.ExitStack() as stack:
+                fs = [stack.enter_context(open(p, "wb")) for p in paths]
                 sinks = ([bgzf.Writer(f, mix["bgzf_level"], pool)
-                          for f in (f1, f2)] if gz else [f1, f2])
-                for b in corpus.blocks(total):
-                    block = corpus.pair_block(cfg, seed, sample, b, total, device)
-                    for mate, sink in zip((1, 2), sinks):
-                        text = corpus.fastq_text(block[f"name{mate}"],
-                                                 block[f"seq{mate}"],
-                                                 block[f"qual{mate}"])
-                        sink.write(text.cpu().numpy())
-                        symbols.update(
-                            torch.unique(block[f"qual{mate}"]).tolist())
-                for sink, f in zip(sinks, (f1, f2)):
+                          for f in fs] if gz else fs)
+                for sample, total in parts:
+                    for b in corpus.blocks(total):
+                        block = corpus.pair_block(cfg, seed, sample, b, total,
+                                                  device)
+                        for mate, sink in zip(mates, sinks):
+                            text = corpus.fastq_text(block[f"name{mate}"],
+                                                     block[f"seq{mate}"],
+                                                     block[f"qual{mate}"])
+                            sink.write(text.cpu().numpy())
+                            symbols.update(
+                                torch.unique(block[f"qual{mate}"]).tolist())
+                for sink, f in zip(sinks, fs):
                     if gz:
                         sink.close()
                     f.flush()
@@ -221,7 +246,8 @@ def write_inputs(cfg: dict, mix: dict, seed: int, work: pathlib.Path,
                     os.fsync(f.fileno())
                     sync_s += time.perf_counter() - t0
             written += sum(os.path.getsize(p) for p in paths)
-            files.append((paths[0], paths[1], total))
+            label = f"sample {stem}" if len(parts) == 1 else "pool"
+            files.append(InputFiles(label, paths, parts))
     return files[:-1], files[-1], written, len(symbols), sync_s
 
 
@@ -232,21 +258,27 @@ def _metrics_summary(err: str) -> Optional[dict]:
     return None
 
 
-def trim(sink: Sink, call_id: str, argv: List[str], r1: str, r2: str,
+def trim(sink: Sink, call_id: str, argv: List[str], inputs: InputFiles,
          device) -> tuple:
-    """One ``cli.main`` call: ``(rc, wall_s, stdout, stderr)``; ``rc`` is
-    None where the call raised."""
+    """One ``cli.main`` call on ``inputs``, ``pe`` on two mate files and
+    ``se`` on one (``argv`` names which): ``(rc, wall_s, stdout,
+    stderr)``; ``rc`` is None where the call raised."""
     from sickle_tpu_torch import cli
 
-    o1, o2, singles = sink.call(call_id)
+    if len(inputs.paths) == 1:
+        (out1,) = sink.call(call_id, 1)
+        files = ["-f", inputs.paths[0], "-o", out1]
+    else:
+        out1, out2, singles = sink.call(call_id, 3)
+        files = ["-f", inputs.paths[0], "-r", inputs.paths[1], "-o", out1,
+                 "-p", out2, "-s", singles]
     # text streams with a .buffer, as the CLI expects of sys.stdout
     out, err = (io.TextIOWrapper(io.BytesIO(), write_through=True)
                 for _ in range(2))
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            rc = cli.main(argv + ["-f", r1, "-r", r2, "-o", o1, "-p", o2,
-                                  "-s", singles], device=device)
+            rc = cli.main(argv + files, device=device)
     except Exception:  # the run goes on; the call counts as failed
         rc = None
         err.write(traceback.format_exc())
@@ -254,50 +286,38 @@ def trim(sink: Sink, call_id: str, argv: List[str], r1: str, r2: str,
     return rc, wall, *(s.buffer.getvalue().decode() for s in (out, err))
 
 
-def expected(cfg: dict, mix: dict, seed: int, sample: int, pairs: int,
-             device) -> tuple:
-    """The reference's three outputs (bytes) and counts for one sample."""
-    q, min_len = reference.thresholds(mix["flags"])
-    parts: List[List[bytes]] = [[], [], []]
-    counts = collections.Counter()
-    for b in corpus.blocks(pairs):
-        block = corpus.pair_block(cfg, seed, sample, b, pairs, device)
-        *outs, c = reference.trim_pairs(block, cfg["qual_offset"], q, min_len)
-        for part, o in zip(parts, outs):
-            part.append(o.cpu().numpy().tobytes())
-        counts.update(c)
-    return [b"".join(p) for p in parts], dict(counts)
-
-
-def check(cfg: dict, mix: dict, seed: int, samples, calls: List[tuple],
-          drained: Optional[dict], sink: Sink, device) -> Dict[str, int]:
+def check(cfg: dict, mix: dict, seed: int, files: List[InputFiles],
+          calls: List[tuple], drained: Optional[dict], sink: Sink,
+          device) -> Dict[str, int]:
     """The compared numbers: every call of the window against the
-    reference.  ``calls`` holds ``(call_id, sample, rc, stdout)``."""
+    reference.  ``calls`` holds ``(call_id, file index, rc, stdout)``."""
     numbers = {"wrong_records": 0, "wrong_summaries": 0,
                "failed_calls": sum(rc != 0 for _, _, rc, _ in calls)}
     drained = (drained or {}).get("calls", {})
-    diffs = collections.defaultdict(list)  # sample -> (stream, digest)
-    for sample in sorted({s for _, s, _, _ in calls}):
-        r1, r2, pairs = samples[sample]
-        want, counts = expected(cfg, mix, seed, sample, pairs, device)
+    diffs = collections.defaultdict(list)  # file -> (output, digest)
+    for index in sorted({f for _, f, _, _ in calls}):
+        inputs = files[index]
+        want, counts = reference.expected(cfg, mix["flags"], seed,
+                                          inputs.parts, device)
         digests = [hashlib.sha256(w).hexdigest() for w in want]
-        text = reference.summary(r1, r2, counts)
-        for call_id, s, _, stdout in calls:
-            if s != sample:
+        text = reference.summary_of(inputs.paths, counts)
+        for call_id, f, _, stdout in calls:
+            if f != index:
                 continue
             numbers["wrong_summaries"] += stdout != text
-            outs = drained.get(call_id) or [None] * 3
-            for i, got in enumerate(outs):
+            outs = drained.get(call_id) or [None] * len(want)
+            for i, got in enumerate(outs[:len(want)]):
                 if got is None or got[0] is None:
                     numbers["wrong_records"] += want[i].count(b"\n") // 4
                 elif got[0] != digests[i]:
-                    diffs[sample].append((i, got[0]))
+                    diffs[index].append((i, got[0]))
     if not diffs:
         return numbers
     blobs = sink.fetch(sorted({d for pairs_ in diffs.values()
                                for _, d in pairs_}))
-    for sample, wrong in diffs.items():
-        want, _ = expected(cfg, mix, seed, sample, samples[sample][2], device)
+    for index, wrong in diffs.items():
+        want, _ = reference.expected(cfg, mix["flags"], seed,
+                                     files[index].parts, device)
         for i, digest in wrong:
             numbers["wrong_records"] += compare.wrong_records(
                 gunzip(blobs[digest]), want[i])
@@ -339,9 +359,9 @@ def _start(device) -> tuple:
     return torch.cuda.get_device_name(device), process_age_s()
 
 
-def _window(sink: Sink, samples, order: List[int], argv: List[str],
-            seconds: float, trace: bool, work: pathlib.Path, device,
-            lengths: int) -> tuple:
+def _window(sink: Sink, files: List[InputFiles], order: List[int],
+            argv: List[str], seconds: float, trace: bool, work: pathlib.Path,
+            device, lengths: int, mates: int) -> tuple:
     """The measured window: ``(calls, records, window_s, reduced trace)``,
     ``calls`` as ``check`` takes them, ``records`` as the readers do."""
     prof = None
@@ -359,17 +379,17 @@ def _window(sink: Sink, samples, order: List[int], argv: List[str],
     t0 = time.perf_counter()
     with mark(devtrace.WINDOW):
         while True:
-            sample = order[len(calls) % len(order)]
-            r1, r2, pairs = samples[sample]
+            index = order[len(calls) % len(order)]
+            inputs = files[index]
             call_id = f"c{len(calls)}"
-            with mark(f"{devtrace.CALL}sample {sample}"):
-                rc, wall, out, err = trim(sink, call_id, argv, r1, r2, device)
-            calls.append((call_id, sample, rc, out))
+            with mark(f"{devtrace.CALL}{inputs.label}"):
+                rc, wall, out, err = trim(sink, call_id, argv, inputs, device)
+            calls.append((call_id, index, rc, out))
             records.append(readers.Call(
-                sample, pairs, pairs * lengths, wall, rc,
-                _metrics_summary(err) if trace else None))
+                index, inputs.pairs, inputs.pairs * lengths, wall, rc,
+                _metrics_summary(err) if trace else None, mates))
             if rc != 0:
-                print(f"call {call_id} (sample {sample}) rc {rc}:\n"
+                print(f"call {call_id} ({inputs.label}) rc {rc}:\n"
                       f"{err[-2000:]}", file=sys.stderr)
             if time.perf_counter() - t0 >= seconds:
                 break
@@ -401,36 +421,36 @@ def run_cell(bench: dict, cell: str, seed: int, seconds: float, trace: bool,
     mix = catalog.traffic(entry["traffic"])
     program_cores, drain_cores = cores or split_cores()
     card, startup_s = _start(device)
-    argv = (["pe", "-t", cfg["qual_type"], "-a", str(len(program_cores))]
-            + mix["flags"])
+    mates = corpus.mates(cfg)
+    argv = (["se" if mates == 1 else "pe", "-t", cfg["qual_type"], "-a",
+             str(len(program_cores))] + mix["flags"])
     if trace:
         argv.append("--metrics")
     work = pathlib.Path(tempfile.mkdtemp(prefix="trimbench-"))
     sink = None
     try:
         t0 = time.perf_counter()
-        samples, warmup, written, symbols, sync_s = write_inputs(
+        files, warmup, written, symbols, sync_s = write_inputs(
             cfg, mix, seed, work, device, scale)
-        print(f"input: {len(samples)} sample file pairs and a warm-up pair, "
-              f"{written} bytes written under {work} in "
+        print(f"input: {len(files)} sets of {mates} mate file(s) and a "
+              f"warm-up set, {written} bytes written under {work} in "
               f"{time.perf_counter() - t0:.3f} s, {sync_s:.3f} s of it "
               "syncing", file=sys.stderr)
         if device.type == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(device)
         sink = Sink(work, drain_cores)
-        order = corpus.plate_order(len(samples), seed)
-        rc, wall, _, err = trim(sink, "warmup", argv, warmup[0], warmup[1],
-                                device)
-        print(f"warm-up: {warmup[2]} pairs, rc {rc}, {wall:.3f} s",
+        order = corpus.plate_order(len(files), seed)
+        rc, wall, _, err = trim(sink, "warmup", argv, warmup, device)
+        print(f"warm-up: {warmup.pairs} pairs, rc {rc}, {wall:.3f} s",
               file=sys.stderr)
         if rc != 0:
             print(err[-2000:], file=sys.stderr)
         setup_s = process_age_s()
         probe = [host_probe_s()]
         calls, records, window_s, reduced = _window(
-            sink, samples, order, argv, seconds, trace, work, device,
-            sum(cfg["read_length"]))
+            sink, files, order, argv, seconds, trace, work, device,
+            sum(cfg["read_length"]), mates)
         probe.append(host_probe_s())
         peak = (torch.cuda.max_memory_allocated(device)
                 if device.type == "cuda" else 0)
@@ -447,7 +467,7 @@ def run_cell(bench: dict, cell: str, seed: int, seconds: float, trace: bool,
             print(f"drain: {drained['window_cpu_s']:.3f} CPU seconds while "
                   f"the pipes ran, {drained['cpu_s']:.3f} in all",
                   file=sys.stderr)
-        numbers = check(cfg, mix, seed, samples, calls, drained, sink, device)
+        numbers = check(cfg, mix, seed, files, calls, drained, sink, device)
         print(f"check: {time.perf_counter() - t_check:.3f} s",
               file=sys.stderr)
     finally:

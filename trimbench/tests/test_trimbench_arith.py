@@ -77,21 +77,33 @@ def test_kernel_roofline_counts_the_reads_the_card_trimmed():
     assert readers.cuts_kernel_roofline_pct(_run(calls)) is None
 
 
-def _ev(name, cat, ts, dur):
-    return {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur}
+def _ev(name, cat, ts, dur, tid=None):
+    event = {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur}
+    if tid is not None:
+        event.update(pid=1, tid=tid)
+    return event
 
 
-def test_trace_reduction_takes_the_union_inside_the_window(tmp_path):
+# the program's own spans: on the call's thread (1) one nests in another
+# over the last gap's middle; one on a worker thread (2) covers the first's
+SPANS = [_ev("engine", "user_annotation", 8000, 3000, tid=1),
+         _ev("wait.write_q_put", "user_annotation", 10_000, 500, tid=1),
+         _ev("consume", "user_annotation", 1200, 600, tid=2)]
+
+
+@pytest.mark.parametrize("spans", [False, True])
+def test_trace_reduction_takes_the_union_inside_the_window(tmp_path, spans):
+    tid = 1 if spans else None
     events = [
-        _ev(devtrace.WINDOW, "user_annotation", 1000, 10_000),
-        _ev(devtrace.CALL + "sample 2", "user_annotation", 1000, 3000),
-        _ev(devtrace.CALL + "sample 5", "user_annotation", 8000, 3000),
+        _ev(devtrace.WINDOW, "user_annotation", 1000, 10_000, tid),
+        _ev(devtrace.CALL + "sample 2", "user_annotation", 1000, 3000, tid),
+        _ev(devtrace.CALL + "sample 5", "user_annotation", 8000, 3000, tid),
         _ev("trim_cuts_tiled", "kernel", 2000, 1000),
         _ev("Memcpy HtoD", "gpu_memcpy", 2500, 1000),   # overlaps the kernel
         _ev("trim_cuts_tiled", "kernel", 9000, 500),
         _ev("before the window", "kernel", 0, 500),
         _ev(devtrace.WINDOW, "gpu_user_annotation", 1000, 10_000),
-    ]
+    ] + (SPANS if spans else [])
     path = tmp_path / "trace.json"
     path.write_text(json.dumps({"traceEvents": events}))
     got = devtrace.reduce(str(path))
@@ -100,7 +112,11 @@ def test_trace_reduction_takes_the_union_inside_the_window(tmp_path):
     assert dict(got["ops"]) == pytest.approx(
         {"trim_cuts_tiled": 0.0015, "Memcpy HtoD": 0.001})
     assert got["gaps"][0] == ("host between cli.main calls", pytest.approx(0.0055))
-    assert got["gaps"][1] == ("host in cli.main (sample 5)", pytest.approx(0.0015))
+    # the innermost span on the call's thread at the gap's middle (10,250)
+    assert got["gaps"][1] == ("wait.write_q_put" if spans else
+                              "host in cli.main (sample 5)",
+                              pytest.approx(0.0015))
+    # a span of another thread does not name the gap
     assert got["gaps"][2] == ("host in cli.main (sample 2)", pytest.approx(0.001))
 
 

@@ -1,24 +1,26 @@
 """A later cell comes as files and entries alone: a configuration, a traffic
 mix and a per-layer metric dropped into a copy of the benchmark are found
-by name and run, with no file of the harness edited."""
+by name and run, with no file of the harness edited: another paired-end
+configuration, a pooled traffic mix, and a single-end configuration."""
 
 import json
 import shutil
 import subprocess
 import sys
 
+import pytest
+
 from trimbench import catalog
 
-from .helpers import STREAM
+from .helpers import NEW_CELLS, STREAM, add_cell
 
 ROOT = catalog.ROOT
-NEW_CELL = "wgs_pe100.plain_pair"
 METRIC = '''"""Calls completed in the window."""
 
 LAYER = "per-file loop"
 UNIT = "calls"
 MOVES = "bases_per_s"
-WORKLOADS = ["wgs_pe100.plain_pair"]
+WORKLOADS = [{cell!r}]
 
 
 def read(run):
@@ -26,38 +28,27 @@ def read(run):
 '''
 
 
-def test_files_and_entries_make_a_new_cell(tmp_path):
+@pytest.mark.parametrize("shape", sorted(NEW_CELLS))
+def test_files_and_entries_make_a_new_cell(tmp_path, shape):
     shutil.copytree(ROOT / "trimbench", tmp_path / "trimbench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     (tmp_path / "sickle_tpu_torch").symlink_to(ROOT / "sickle_tpu_torch")
     bench = catalog.benchmark()
     here = tmp_path / "trimbench"
 
-    cfg = json.loads((here / "configs" / "wgs_pe150.json").read_text())
-    cfg.update(name="wgs_pe100", read_length=[100, 100])
-    (here / "configs" / "wgs_pe100.json").write_text(json.dumps(cfg))
-    mix = json.loads((here / "traffic" / "plate.json").read_text())
-    mix.update(name="plain_pair", flags=["-g", "-q", "25"])
-    (here / "traffic" / "plain_pair.json").write_text(json.dumps(mix))
-    (here / "metrics" / "calls_in_window.py").write_text(METRIC)
-
-    bench["configs"].append({"name": "wgs_pe100", "source": "https://x.org",
-                             "file": "trimbench/configs/wgs_pe100.json",
-                             "reduced": ["pairs", "read_length"], "why": "t"})
-    bench["workloads"].append({"name": NEW_CELL, "config": "wgs_pe100",
-                               "traffic": "plain_pair", "chips": 1, "why": "t"})
-    rate = next(e for e in bench["end_to_end"] if e["name"] == "bases_per_s")
-    rate["workloads"].append(NEW_CELL)
+    cell = add_cell(bench, tmp_path, shape)
+    (here / "metrics" / "calls_in_window.py").write_text(
+        METRIC.format(cell=cell))
     bench["per_layer"].append({"name": "calls_in_window", "unit": "calls",
                                "better": "higher", "source": "host_clock",
                                "layer": "per-file loop",
                                "moves": "bases_per_s",
-                               "workloads": [NEW_CELL]})
+                               "workloads": [cell]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
 
     code = ("import json; from trimbench import catalog, run; "
             "print(json.dumps(run.run_cell(catalog.benchmark(), "
-            f"{NEW_CELL!r}, 17, 0.5, True, 'cpu', scale=0.0008)))")
+            f"{cell!r}, 17, 0.5, True, 'cpu', scale={NEW_CELLS[shape][3]})))")
     done = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
                           capture_output=True, text=True, timeout=600)
     assert done.returncode == 0, done.stderr[-3000:]

@@ -1,14 +1,15 @@
 """The control, the reference on qualities one bit short, comes out not
-correct: on several seeds, for every cell's configuration."""
+correct: on several seeds, for every cell's configuration and for a
+single-end one."""
 
 import pytest
 
 from trimbench import compare, control
 
-from .helpers import CELLS, SCALE, parts
+from .helpers import CELLS, SCALE, SE, parts
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", CELLS + (SE,))
 @pytest.mark.parametrize("seed", [11, 2**31 + 12, 13])
 def test_the_control_is_not_correct(cell, seed):
     _, cfg, mix = parts(cell)

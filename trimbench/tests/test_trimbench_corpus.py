@@ -9,9 +9,9 @@ from concurrent.futures import ThreadPoolExecutor
 import pytest
 import torch
 
-from trimbench import bgzf, corpus
+from trimbench import bgzf, corpus, run
 
-from .helpers import CELLS, PLATE, SEED, parts
+from .helpers import CELLS, PLATE, POOLED, SE, SEED, parts
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -44,6 +44,51 @@ def test_reads_have_the_configured_shape(cell):
     first = bytes(n1[0].tolist()).decode()
     cut = first.index(" ")
     assert bytes(n2[0].tolist()).decode()[:cut] == first[:cut]
+
+
+def test_a_single_end_block_is_a_pairs_mate_one():
+    _, se, _ = parts(SE)
+    pe = dict(se, read_length=[50, 50])
+    one = corpus.pair_block(se, SEED, 1, 0, 400, "cpu")
+    two = corpus.pair_block(pe, SEED, 1, 0, 400, "cpu")
+    assert sorted(one) == ["name1", "qual1", "seq1"]
+    assert all(torch.equal(one[k], two[k]) for k in one)
+
+
+def test_the_pooled_files_are_the_plates_files_one_after_another(tmp_path):
+    _, cfg, plate = parts(PLATE)
+    _, _, pooled = parts(POOLED)
+    scale = 0.002
+    got = {}
+    for mix in (plate, pooled):
+        work = tmp_path / mix["name"]
+        work.mkdir()
+        got[mix["name"]] = run.write_inputs(cfg, mix, SEED, work, "cpu",
+                                            scale)
+    samples = got["plate"][0]
+    (pool,) = got["pooled"][0]
+    assert [s.parts for s in samples] == [[p] for p in pool.parts]
+    assert [n for _, n in pool.parts] == corpus.sample_pairs(cfg, scale)
+    assert pool.pairs == sum(s.pairs for s in samples)
+    for mate in (0, 1):
+        whole = b"".join(open(s.paths[mate], "rb").read() for s in samples)
+        assert open(pool.paths[mate], "rb").read() == whole
+        assert pool.paths[mate].endswith(f"pool_R{mate + 1}.fastq")
+    # the warm-up, and the bytes written, are the plate's
+    assert got["plate"][1].parts == got["pooled"][1].parts
+    assert got["plate"][2:4] == got["pooled"][2:4]
+
+
+def test_a_single_end_cell_writes_mate_one_alone(tmp_path):
+    _, cfg, mix = parts(SE)
+    files, warmup, _, _, _ = run.write_inputs(cfg, mix, SEED, tmp_path,
+                                              "cpu", 0.0005)
+    assert len(files) == cfg["samples"]
+    for f in files + [warmup]:
+        (path,) = f.paths
+        assert path.endswith("_R1.fastq")
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
+        f"{s}_R1.fastq" for s in ["0", "1", corpus.WARMUP])
 
 
 def test_read_two_decays_faster_where_configured():

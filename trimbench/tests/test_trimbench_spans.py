@@ -5,7 +5,7 @@ import pytest
 
 from trimbench import catalog, readers, spans
 
-from .helpers import CELLS, PLATE, STREAM, tiny_run
+from .helpers import CELLS, PLATE, POOLED, STREAM, tiny_run
 
 H100 = "NVIDIA H100 80GB HBM3"
 SPAN_METRICS = {
@@ -15,6 +15,11 @@ SPAN_METRICS = {
     PLATE: ["compress_ns_per_base.plate", "output_close_ms.plate",
             "dispatch_starved_share.plate",
             "writer_backpressure_share.plate"],
+    # the pooled pair is trimmed whole, as the lane is: the lane's readers
+    # and a close of its own
+    POOLED: ["compress_ns_per_base.stream", "output_close_ms.pooled",
+             "dispatch_starved_share.stream",
+             "writer_backpressure_share.stream"],
 }
 
 
@@ -52,6 +57,7 @@ def test_span_readers_add_over_the_calls():
                      run) == pytest.approx(100 * 200 / 1000)
     assert _read("read_ns_per_base.stream", run) == pytest.approx(40e6 / bases)
     assert _read("output_close_ms.plate", run) == pytest.approx(15.0)
+    assert _read("output_close_ms.pooled", run) == pytest.approx(15.0)
 
 
 def test_span_readers_read_nothing_where_no_span_is():
