@@ -554,7 +554,10 @@ def _produce_bgzf(src, pipe, state, mtr, params, need_rows, eff_fn,
     window, and — for interleaved pairs — handing an odd trailing record
     back to the stream so pairs stay whole.  ``prep_put`` consumes each
     finished chunk (position bookkeeping + wire prep + queue put).
-    Each window refill is a ``read`` span (its inflate nested)."""
+    Each window refill is a ``read`` span (its inflate nested);
+    ``carry_bytes`` is counted from 0, so a call without a rotation
+    reads 0."""
+    _metrics.count("carry_bytes", 0, mtr)
 
     def extend(min_total: int) -> bool:
         return _extend(src, min_total, mtr)
